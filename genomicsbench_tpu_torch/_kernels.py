@@ -26,7 +26,7 @@ NVCC_FLAGS = (
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # gb_bsw_extend's arguments: every pointer and the stream are c_void_p (a
 # plain int argument would be cut to 32 bits)
-BSW_ARGTYPES = [_P] * 7 + [_L] * 3 + [_P] * 3 + [_I] * 8 + [_P]
+BSW_ARGTYPES = [_P] * 7 + [_L] * 3 + [_P] * 2 + [_I] * 10 + [_P]
 
 _lib: ctypes.CDLL | None = None
 

@@ -7,8 +7,9 @@ bit-exact with the JAX package, the scalar oracle and the goldens.
 Two versions of one function, `bsw_extend`, over the uploaded pair arrays
 and an index tensor of pairs:
 
-* on the card, the hand-written CUDA kernel `csrc/bsw.cu` (one thread per
-  pair, the scalar loop; see the note there);
+* on the card, the hand-written CUDA kernel `csrc/bsw.cu` (one warp per
+  pair, its eh row in shared memory; see the note there), launched as
+  `bsw_launch` says for the padded query width;
 * on the CPU, `bsw_extend_reference`, the plain PyTorch version: a
   transcription of the JAX package's `_bsw_core` over a (B, Q+1) int32
   tile, a Python loop over target rows with the column dependency of F
@@ -39,6 +40,37 @@ BIG = 1 << 30
 # int32 form (the breakdown is in csrc/bsw.cu); the kernel's bound counts them
 BSW_OPS_PER_CELL = 10
 RESULT_ROWS = ("score", "qle", "tle", "gtle", "gscore", "max_off")
+# Shared memory of one Hopper block at most (227 KB; past 48 KB the kernel's
+# launcher opts in)
+SMEM_MAX_BYTES = 232_448
+WARPS_PER_BLOCK = 8             # the kernel's most (kMaxWarpsPerBlock)
+
+
+@dataclasses.dataclass(frozen=True)
+class BswLaunch:
+    """How `bsw_extend` launches the kernel for one padded query width."""
+
+    warps_per_block: int
+    warp_bytes: int     # shared memory of one warp's eh row and query (0: scratch)
+    scratch: bool       # eh rows in a device scratch, not in shared memory
+
+    @property
+    def shared_bytes(self) -> int:
+        return self.warps_per_block * self.warp_bytes
+
+
+def bsw_launch(q_width: int) -> BswLaunch:
+    """The kernel's launch configuration for queries padded to `q_width`
+    bases: a function of the width alone, so the host knows it without a
+    device read.  A warp holds its pair's eh row (H and E, int32, columns
+    0..q_width) and query bases in shared memory, 9 bytes per column.
+    Blocks take as many warps, up to 8, as fit in a block's 227 KB; a row
+    longer than that goes to a device scratch instead."""
+    warp_bytes = -(-9 * (q_width + 1) // 16) * 16
+    if warp_bytes > SMEM_MAX_BYTES:
+        return BswLaunch(WARPS_PER_BLOCK, 0, True)
+    warps = min(WARPS_PER_BLOCK, SMEM_MAX_BYTES // warp_bytes)
+    return BswLaunch(warps, warp_bytes, False)
 
 
 @dataclasses.dataclass
@@ -271,16 +303,18 @@ def bsw_extend(query, target, qlen, tlen, h0, w_eff, idx,
     if m == 0:
         return out
     q_width, t_width = query.shape[1], target.shape[1]
-    # the eh row of each pair, int32 [column][pair]: threads of a warp that
-    # stand on the same column touch neighbouring words
-    eh = torch.empty((2, q_width + 1, m), dtype=torch.int32, device=dev)
+    launch = bsw_launch(q_width)
+    # only rows too long for shared memory: each pair's eh row, [pair][H/E][column]
+    scratch = (torch.empty((m, 2, q_width + 1), dtype=torch.int32, device=dev)
+               if launch.scratch else None)
     match, mis, ambig = _substitution_scores(params)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gb_bsw_extend(
             query.data_ptr(), target.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
             h0.data_ptr(), w_eff.data_ptr(), idx.data_ptr(), m, q_width, t_width,
-            eh[0].data_ptr(), eh[1].data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            launch.warps_per_block, launch.warp_bytes,
             match, mis, ambig, params.o_del, params.e_del, params.o_ins,
             params.e_ins, params.zdrop, stream)
     if rc != 0:

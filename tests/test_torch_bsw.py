@@ -20,7 +20,7 @@ from genomicsbench_tpu_torch.io.pairs import pack_pairs, write_pairs
 from genomicsbench_tpu_torch.ops import bsw
 from genomicsbench_tpu_torch.oracle.bsw import banded_sw_oracle
 
-from torch_bsw_cases import PARAMS, load_golden, random_pairs, rows
+from torch_bsw_cases import PARAMS, STRESS, load_golden, random_pairs, rows, stress_pairs
 
 
 def _port_batch(pairs, params, max_t, max_q):
@@ -38,6 +38,19 @@ def test_batch_matches_jax(name):
                                         b.h0, JaxBswParams(**PARAMS[name])))
     got = rows(bsw.banded_sw_batch(b.query, b.target, b.qlen, b.tlen, b.h0,
                                    BswParams(**PARAMS[name]), device="cpu"))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("label", sorted(STRESS))
+def test_stress_matches_jax(label):
+    """The plain version, which the card holds its kernel against, against
+    JAX banded_sw_batch on the stress inputs of the card's tests, at a
+    small count."""
+    b = pack_pairs(stress_pairs(label, seed=3, n=40, max_q=400))
+    want = rows(jax_bsw.banded_sw_batch(b.query, b.target, b.qlen, b.tlen,
+                                        b.h0, JaxBswParams(**STRESS[label])))
+    got = rows(bsw.banded_sw_batch(b.query, b.target, b.qlen, b.tlen, b.h0,
+                                   BswParams(**STRESS[label]), device="cpu"))
     np.testing.assert_array_equal(got, want)
 
 

@@ -16,7 +16,7 @@ from genomicsbench_tpu_torch.config import BswParams
 from genomicsbench_tpu_torch.io.pairs import pack_pairs
 from genomicsbench_tpu_torch.ops import bsw
 
-from torch_bsw_cases import PARAMS, load_golden, random_pairs, rows
+from torch_bsw_cases import PARAMS, STRESS, load_golden, random_pairs, rows, stress_pairs
 
 pytestmark = pytest.mark.cuda
 
@@ -59,6 +59,35 @@ def test_kernel_matches_plain(card, name, seed):
     got = bsw.bsw_extend(*arrays, idx, params)
     want = bsw.bsw_extend_reference(*arrays, idx, params)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("label", sorted(STRESS))
+def test_stress_matches_plain(card, label):
+    """Long queries (blocks above 48 KB), narrow bands, zdrop = 0, large h0,
+    base 4 in targets, qlen at chunk edges, and the two long-query
+    launches: three warps per block, and in device scratch."""
+    params = BswParams(**STRESS[label])
+    b = pack_pairs(stress_pairs(label, seed=2, n=300))
+    launch = bsw.bsw_launch(b.query.shape[1])
+    assert launch.scratch == (label == "query_30000")
+    assert (launch.warps_per_block < bsw.WARPS_PER_BLOCK) == (label == "query_8000")
+    arrays = _on(b, params, card)
+    idx = torch.arange(b.n, device=card)
+    got = bsw.bsw_extend(*arrays, idx, params)
+    want = bsw.bsw_extend_reference(*arrays, idx, params)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_scratch_instance_matches_plain(card):
+    """Mixed pairs padded to a query width past shared memory, so every
+    pair's eh row lives in device scratch."""
+    b = pack_pairs(random_pairs(5, 300, max_q=255, max_t=600), None, 26000)
+    assert bsw.bsw_launch(b.query.shape[1]).scratch
+    arrays = _on(b, BswParams(), card)
+    idx = torch.arange(b.n, device=card)
+    got = bsw.bsw_extend(*arrays, idx)
+    torch.testing.assert_close(got, bsw.bsw_extend_reference(*arrays, idx),
+                               rtol=0, atol=0)
 
 
 def test_edge_slots_on_card(card):

@@ -7,6 +7,8 @@
   when there is no card; it never falls back to the CPU on its own.
 * The wrapper of the kernel checks what it is given before any launch.
 * The configuration crosses from the JAX package as a plain dict.
+* The kernel's launch configuration is a host function of the padded query
+  width alone.
 """
 
 import ast
@@ -184,3 +186,32 @@ def test_params_round_trip(fields):
     np.testing.assert_array_equal(p.score_matrix(), jp.score_matrix())
     with pytest.raises(TypeError):
         bsw_params_from_dict({**dataclasses.asdict(jp), "band": 3})
+
+
+@pytest.mark.parametrize("q_width, warps, warp_bytes, scratch", [
+    (0, 8, 16, False),
+    (191, 8, 1728, False),         # the main path's width
+    (1100, 8, 9920, False),        # 79 KB: the block opts in past 48 KB
+    (8000, 3, 72016, False),       # fewer warps to fit a block's 227 KB
+    (30000, 8, 0, True),           # past a block's 227 KB: device scratch
+])
+def test_launch_is_a_function_of_query_width(q_width, warps, warp_bytes, scratch):
+    launch = bsw.bsw_launch(q_width)
+    assert launch == bsw.BswLaunch(warps, warp_bytes, scratch)
+    assert launch == bsw.bsw_launch(np.int64(q_width))
+    if not scratch:
+        assert warp_bytes >= 9 * (q_width + 1)      # the kernel's own check
+        assert launch.shared_bytes <= bsw.SMEM_MAX_BYTES
+        if warps < bsw.WARPS_PER_BLOCK:             # one more would not fit
+            assert launch.shared_bytes + warp_bytes > bsw.SMEM_MAX_BYTES
+
+
+def test_wrapper_launch_reads_only_query_width():
+    """bsw_launch takes the padded query width and nothing else, and its
+    answer does not depend on what it was asked before."""
+    import inspect
+
+    assert list(inspect.signature(bsw.bsw_launch).parameters) == ["q_width"]
+    widths = [0, 191, 1100, 8000, 30000]
+    first = [bsw.bsw_launch(q) for q in widths]
+    assert [bsw.bsw_launch(q) for q in reversed(widths)] == first[::-1]

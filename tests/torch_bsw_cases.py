@@ -61,6 +61,73 @@ def random_pairs(seed, n, max_q, max_t):
     return pairs
 
 
+# BswParams fields of each stress case of stress_pairs
+STRESS = {
+    "long_queries": {},         # queries of 300 .. max_q bases, many chunks
+    "w3": dict(w=3),            # the band crosses a chunk edge every few rows
+    "w10": dict(w=10),
+    "zdrop0": dict(zdrop=0),    # no z-drop test
+    "big_h0": {},               # h0 up to 5000: wide first rows, long gscore
+    "n_in_targets": {},         # base 4 in targets as well as queries
+    "chunk_edges": {},          # qlen at 31, 32, 33, 63, 64, 65
+    "query_8000": {},           # three warps per block, 211 KB of shared memory
+    "query_30000": {},          # too long for shared memory: device scratch
+}
+
+
+def _mutant(rng, q, tl, indel):
+    """A target of tl bases copied from q with substitutions (1 in 12) and
+    single-base insertions and deletions (rate indel each), so the best
+    path drifts off the diagonal, then a random tail."""
+    out, j = [], 0
+    while len(out) < tl and j < len(q):
+        r = rng.random()
+        if r < indel:
+            j += 1
+        elif r < 2 * indel:
+            out.append(int(rng.integers(0, 4)))
+        else:
+            out.append(int(q[j]) if rng.random() >= 1 / 12 else int(rng.integers(0, 4)))
+            j += 1
+    t = rng.integers(0, 4, tl).astype(np.uint8)
+    t[:len(out)] = out
+    return t
+
+
+def stress_pairs(label, seed, n, max_q=1100):
+    """n pairs of the stress case `label` (a key of STRESS; score them with
+    its BswParams fields).  A quarter of the targets are unrelated to their
+    query; the rest are mutants of it (_mutant).  The two long-query cases
+    hold one such pair and min(n, 8) - 1 short ones."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    if label.startswith("query_"):
+        n = min(n, 8)
+    for k in range(n):
+        ql = int(rng.integers(1, 256))
+        h0 = int(rng.integers(0, 60))
+        if label == "long_queries":
+            ql = int(rng.integers(300, max_q + 1))
+        elif label == "chunk_edges":
+            ql = (31, 32, 33, 63, 64, 65)[k % 6]
+        elif label == "big_h0":
+            h0 = int(rng.integers(0, 5001)) if k % 3 else h0
+        elif label in ("query_8000", "query_30000") and k == 0:
+            ql = int(label.split("_")[1])
+        tl = int(rng.integers(1, 2 * ql + 2))
+        if label.startswith("query_") and k == 0:
+            tl = 64
+        q = rng.integers(0, 4, ql).astype(np.uint8)
+        t = (rng.integers(0, 4, tl).astype(np.uint8) if k % 4 == 3
+             else _mutant(rng, q, tl, indel=0.02))
+        if label == "n_in_targets" or k % 5 == 0:
+            q[rng.random(ql) < 0.05] = 4
+        if label == "n_in_targets":
+            t[rng.random(tl) < 0.05] = 4
+        pairs.append((q, t, h0))
+    return pairs
+
+
 def rows(res):
     """A BswBatchResult of either package -> (n, 6) rows."""
     return np.stack([res.score, res.qle, res.tle, res.gtle, res.gscore,
