@@ -7,7 +7,7 @@ easy to find, and imports nothing of it: the host layers it needs (`io/`,
 
 Layering:
     cli        — `python -m genomicsbench_tpu_torch <subcommand>`
-    io/        — host-side loaders (pair text format)
+    io/        — host-side loaders (pair and anchor-call text formats)
     batching/  — length bucketing
     ops/       — device paths: a plain PyTorch version beside each kernel
     csrc/      — the hand-written CUDA kernels, built by `_kernels.py`

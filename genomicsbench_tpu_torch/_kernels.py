@@ -1,10 +1,12 @@
-"""Build and bind the port's hand-written CUDA kernel, `csrc/bsw.cu`.
+"""Build and bind the port's hand-written CUDA kernels, `csrc/*.cu`.
 
-The source has a plain C interface.  At first use it is compiled with nvcc
-for sm_90a into `build/genomicsbench_tpu_torch/` at the repo root, under a
-name that carries a hash of the source and the flags (so an edit rebuilds
-and an unchanged source is reused), and loaded with ctypes.  Nothing is
-built or loaded when this module is imported.
+Each source has a plain C interface.  At first use every source is compiled
+with nvcc for sm_90a into `build/genomicsbench_tpu_torch/` at the repo root,
+one nvcc process per source that has no library yet, all started together.
+Each library's name carries a hash of its source and the flags (so an edit
+rebuilds and an unchanged source is reused), with nvcc's log beside it.  The
+libraries are loaded with ctypes.  Nothing is built or loaded when this
+module is imported.
 """
 
 from __future__ import annotations
@@ -14,9 +16,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "bsw.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "genomicsbench_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -24,11 +27,17 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# gb_bsw_extend's arguments: every pointer and the stream are c_void_p (a
-# plain int argument would be cut to 32 bits)
-BSW_ARGTYPES = [_P] * 7 + [_L] * 3 + [_P] * 2 + [_I] * 10 + [_P]
+# Each source's C entry points with their arguments: every pointer and the
+# stream are c_void_p (a plain int argument would be cut to 32 bits)
+SOURCES = {
+    "bsw": (CSRC / "bsw.cu",
+            {"gb_bsw_extend": [_P] * 7 + [_L] * 3 + [_P] * 2 + [_I] * 10 + [_P]}),
+    "chain": (CSRC / "chain.cu",
+              {"gb_chain_dp": [_P] * 9 + [_L] + [_I] * 4 + [_P] * 6}),
+}
 
-_lib: ctypes.CDLL | None = None
+_lib: types.SimpleNamespace | None = None
+_cdlls: list[ctypes.CDLL] = []
 
 
 def _nvcc() -> str:
@@ -37,40 +46,60 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found (on PATH or under $CUDA_HOME/bin): "
-                       "the CUDA kernel cannot be built")
+                       "the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
+def library_path(name: str) -> Path:
+    source = SOURCES[name][0]
+    digest = hashlib.sha256(source.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libbsw-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> str:
-    """Compile the source unless its library exists.  Returns nvcc's log
-    (ptxas registers, spills); raises if nvcc is missing or fails."""
-    lib = library_path()
-    if not lib.exists():
+def build() -> dict[str, str]:
+    """Compile every source whose library is missing, one nvcc each, all at
+    once.  Returns {name: nvcc's log} (ptxas registers, spills); raises if
+    nvcc is missing or any build fails."""
+    procs = {}
+    for name, (source, _) in SOURCES.items():
+        lib = library_path(name)
+        if lib.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
+        procs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCE.name} "
-                               f"(exit {proc.returncode}):\n{proc.stdout}")
-        lib.with_suffix(".log").write_text(proc.stdout)
+            failed.append(f"nvcc failed for {SOURCES[name][0].name} "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
+        lib = library_path(name)
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)    # atomic: a concurrent loader sees all or nothing
-    return lib.with_suffix(".log").read_text()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: library_path(name).with_suffix(".log").read_text()
+            for name in SOURCES}
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+def load() -> types.SimpleNamespace:
+    """Every C entry point of the kernel libraries, as attributes (e.g.
+    `load().gb_chain_dp`), built first if needed."""
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(str(library_path()))
-        lib.gb_bsw_extend.argtypes = BSW_ARGTYPES
-        lib.gb_bsw_extend.restype = ctypes.c_int
-        _lib = lib
+        fns = {}
+        for name, (_, entries) in SOURCES.items():
+            lib = ctypes.CDLL(str(library_path(name)))
+            _cdlls.append(lib)      # kept open for the life of the process
+            for fn_name, argtypes in entries.items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[fn_name] = fn
+        _lib = types.SimpleNamespace(**fns)
     return _lib

@@ -8,7 +8,7 @@ format.
 
     python -m genomicsbench_tpu_torch <subcommand> [args]
 
-Subcommands: bsw.
+Subcommands: bsw, chain.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -59,6 +60,25 @@ def cmd_bsw(args):
               file=sys.stderr)
 
 
+def cmd_chain(args):
+    """chain -i in.txt -o out.txt (chain/src/main.cpp:22-37).
+
+    Writes the print_return format (host_data_io.cpp:52-59) byte for byte
+    as the JAX package's CLI does, then the timing line on stderr."""
+    from genomicsbench_tpu_torch.io.anchors import load_anchor_calls, write_returns
+    from genomicsbench_tpu_torch.ops.chain import chain_batch
+
+    calls = load_anchor_calls(args.input)
+    t0 = time.perf_counter()
+    res = chain_batch(calls, device=args.device)
+    dt = time.perf_counter() - t0
+    if args.output:
+        write_returns(args.output, [
+            types.SimpleNamespace(scores=res.scores[r, :n], parents=res.parents[r, :n])
+            for r, n in enumerate(res.n)])
+    print(f"Time in kernel: {dt:.2f} sec", file=sys.stderr)
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="gbench", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -76,6 +96,15 @@ def build_parser():
     s.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     s.set_defaults(fn=cmd_bsw)
+
+    s = sub.add_parser("chain", help="minimap2 anchor chaining")
+    s.add_argument("-i", "--input", required=True)
+    s.add_argument("-o", "--output")
+    s.add_argument("-t", type=int, default=1,
+                   help="accepted for run-cpu.sh parity (ignored)")
+    s.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    s.set_defaults(fn=cmd_chain)
     return p
 
 

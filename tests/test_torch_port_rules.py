@@ -5,8 +5,9 @@
   fresh interpreter.
 * Every entry point runs on the card unless asked for the CPU, and raises
   when there is no card; it never falls back to the CPU on its own.
-* The wrapper of the kernel checks what it is given before any launch.
-* The configuration crosses from the JAX package as a plain dict.
+* The wrappers of the kernels check what they are given before any launch.
+* The configuration and the anchor calls cross from the JAX package as
+  plain dicts.
 * The kernel's launch configuration is a host function of the padded query
   width alone.
 """
@@ -27,13 +28,17 @@ import genomicsbench_tpu_torch
 from genomicsbench_tpu_torch import resolve_device
 from genomicsbench_tpu_torch.cli import main as torch_cli_main
 from genomicsbench_tpu_torch.config import BswParams, bsw_params_from_dict
+from genomicsbench_tpu_torch.io.anchors import anchor_calls_from_dicts, write_anchor_calls
 from genomicsbench_tpu_torch.io.pairs import PairBatch, write_pairs
-from genomicsbench_tpu_torch.ops import bsw
+from genomicsbench_tpu_torch.ops import bsw, chain
+
+from torch_chain_cases import edge_cases
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-# the port, chip_smoke.py and the test helper it imports on the card
+# the port, chip_smoke.py and the test helpers it imports on the card
 PORT_FILES = sorted((ROOT / "genomicsbench_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_bsw_cases.py"
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_bsw_cases.py",
+    ROOT / "tests" / "torch_chain_cases.py",
 ]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "genomicsbench_tpu")
 
@@ -80,6 +85,8 @@ def test_port_file_imports_no_jax(path):
 def test_port_import_loads_no_jax():
     code = ("import sys\n"
             "import genomicsbench_tpu_torch.ops.bsw, genomicsbench_tpu_torch.cli\n"
+            "import genomicsbench_tpu_torch.ops.chain, genomicsbench_tpu_torch.io\n"
+            "import genomicsbench_tpu_torch.oracle\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'genomicsbench_tpu')]\n"
             "assert not bad, bad\n")
@@ -124,6 +131,67 @@ def test_cli_raises_without_card(no_card, tmp_path):
     write_pairs(str(path), zip(b.query, b.target, b.h0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_cli_main(["bsw", "-pairs", str(path)])
+
+
+def _tiny_calls():
+    return anchor_calls_from_dicts(edge_cases()["n0_n1"][0])
+
+
+@pytest.mark.parametrize("entry", ["chain_batch", "cli"])
+def test_chain_entry_points_raise_without_card(no_card, entry, tmp_path):
+    calls = _tiny_calls()
+    path = tmp_path / "anchors.in"
+    write_anchor_calls(str(path), calls)
+    run = {
+        "chain_batch": lambda *dev: chain.chain_batch(calls, device=dev[0])
+        if dev else chain.chain_batch(calls),
+        "cli": lambda *dev: torch_cli_main(["chain", "-i", str(path)]
+                                           + (["--device", dev[0]] if dev else [])),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run("cuda:0")
+    run("cpu")
+
+
+def _chain_args():
+    t, _, _ = chain.upload_calls(_tiny_calls(), "cpu")
+    return [t[k].clone() for k in chain.CHAIN_DP_INPUTS]
+
+
+@pytest.mark.parametrize("fault", ["dtype", "contiguity", "length", "offs_order",
+                                   "offs_end", "window", "order_keyword"])
+def test_chain_wrapper_checks_inputs(fault, monkeypatch):
+    """chain_dp refuses what the kernel does not take, on the host, before
+    it would build or launch anything."""
+    from genomicsbench_tpu_torch import _kernels
+
+    def no_launch():
+        raise AssertionError("reached the kernel")
+
+    monkeypatch.setattr(_kernels, "load", no_launch)
+    args, kw = _chain_args(), {}
+    if fault == "dtype":
+        args[3], err = args[3].double(), TypeError          # avg_qspan
+    elif fault == "contiguity":
+        args[1], err = torch.stack([args[1], args[1]], 1)[:, 0], ValueError
+    elif fault == "length":
+        args[6], err = args[6][:-1], ValueError              # bw
+    elif fault == "offs_order":
+        args[2][2], err = args[2][3] + 1, ValueError         # offs[2] > offs[3]
+    elif fault == "offs_end":
+        args[2][-1], err = args[2][-1] - 1, ValueError
+    elif fault == "order_keyword":
+        # the warps' read order comes from the checked offsets, never the caller
+        kw, err = dict(order=torch.zeros(5, dtype=torch.int64)), TypeError
+    else:
+        kw, err = dict(window=-1), ValueError
+    with pytest.raises(err):
+        chain.chain_dp(*args, **kw)
+    scores, parents, peak, visited = chain.chain_dp(*_chain_args())
+    assert scores.shape == parents.shape == peak.shape == (42,)
+    assert visited.dtype == torch.int64 and visited.shape == (5,)
 
 
 def test_resolve_device():
