@@ -34,6 +34,9 @@ SOURCES = {
             {"gb_bsw_extend": [_P] * 7 + [_L] * 3 + [_P] * 2 + [_I] * 10 + [_P]}),
     "chain": (CSRC / "chain.cu",
               {"gb_chain_dp": [_P] * 9 + [_L] + [_I] * 4 + [_P] * 6}),
+    "pairhmm": (CSRC / "pairhmm.cu",
+                {name: [_P] * 11 + [_L, _P, _L, _P] + [_I] * 3 + [_P] * 2
+                 for name in ("gb_pairhmm_f32", "gb_pairhmm_f64")}),
 }
 
 _lib: types.SimpleNamespace | None = None

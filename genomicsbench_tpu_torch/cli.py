@@ -8,7 +8,7 @@ format.
 
     python -m genomicsbench_tpu_torch <subcommand> [args]
 
-Subcommands: bsw, chain.
+Subcommands: bsw, phmm, chain.
 """
 
 from __future__ import annotations
@@ -60,6 +60,30 @@ def cmd_bsw(args):
               file=sys.stderr)
 
 
+def cmd_phmm(args):
+    """phmm -f testfile [-l loop] (PairHMMUnitTest.cpp:61-64).
+
+    Scores each batch's read-major cross product, prints the rows as the
+    JAX package's CLI does (--print-output), then the timing line on
+    stderr."""
+    from genomicsbench_tpu_torch.io.phmm_text import load_phmm_testfile
+    from genomicsbench_tpu_torch.ops.pairhmm import pairhmm_batch
+
+    batches = load_phmm_testfile(args.f)
+    t0 = time.perf_counter()
+    for _ in range(args.loop):
+        results = []
+        for b in batches:
+            reads = [dict(bases=r.bases, q=r.q, i=r.i, d=r.d, c=r.c) for r in b.reads]
+            results.append(pairhmm_batch(reads, b.haps, device=args.device))
+    dt = time.perf_counter() - t0
+    if args.print_output:
+        for r in results:
+            for v in r:
+                print(f"{v:E}")
+    print(f"PairHMM completed. Kernel runtime: {dt:.2f} sec", file=sys.stderr)
+
+
 def cmd_chain(args):
     """chain -i in.txt -o out.txt (chain/src/main.cpp:22-37).
 
@@ -96,6 +120,16 @@ def build_parser():
     s.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     s.set_defaults(fn=cmd_bsw)
+
+    s = sub.add_parser("phmm", help="pair-HMM forward likelihood")
+    s.add_argument("-f", required=True)
+    s.add_argument("-t", type=int, default=1,
+                   help="accepted for run-cpu.sh parity (ignored)")
+    s.add_argument("-l", "--loop", type=int, default=1)
+    s.add_argument("--print-output", action="store_true")
+    s.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    s.set_defaults(fn=cmd_phmm)
 
     s = sub.add_parser("chain", help="minimap2 anchor chaining")
     s.add_argument("-i", "--input", required=True)

@@ -1,10 +1,14 @@
-"""Host-side input loaders (pair and anchor-call text formats)."""
+"""Host-side input loaders (pair, anchor-call and phmm text formats)."""
 
 from genomicsbench_tpu_torch.io.anchors import (AnchorCall, anchor_calls_from_dicts,
                                                 load_anchor_calls, write_anchor_calls,
                                                 write_returns)
 from genomicsbench_tpu_torch.io.pairs import PairBatch, load_pairs, pack_pairs, write_pairs
+from genomicsbench_tpu_torch.io.phmm_text import (PhmmBatch, PhmmRead, load_phmm_testfile,
+                                                  phmm_batches_from_dicts,
+                                                  write_phmm_testfile)
 
-__all__ = ["AnchorCall", "PairBatch", "anchor_calls_from_dicts", "load_anchor_calls",
-           "load_pairs", "pack_pairs", "write_anchor_calls", "write_pairs",
-           "write_returns"]
+__all__ = ["AnchorCall", "PairBatch", "PhmmBatch", "PhmmRead", "anchor_calls_from_dicts",
+           "load_anchor_calls", "load_pairs", "load_phmm_testfile", "pack_pairs",
+           "phmm_batches_from_dicts", "write_anchor_calls", "write_pairs",
+           "write_phmm_testfile", "write_returns"]

@@ -3,5 +3,11 @@ the JAX package in the tests and on the card."""
 
 from genomicsbench_tpu_torch.oracle.bsw import banded_sw_oracle
 from genomicsbench_tpu_torch.oracle.chain import chain_dp_oracle, make_anchors
+from genomicsbench_tpu_torch.oracle.pairhmm import (PH2PR_F64_CPOW, encode_bases,
+                                                    pairhmm_forward_oracle,
+                                                    pairhmm_forward_scaled,
+                                                    pairhmm_forward_scaled_many)
 
-__all__ = ["banded_sw_oracle", "chain_dp_oracle", "make_anchors"]
+__all__ = ["PH2PR_F64_CPOW", "banded_sw_oracle", "chain_dp_oracle", "encode_bases",
+           "make_anchors", "pairhmm_forward_oracle", "pairhmm_forward_scaled",
+           "pairhmm_forward_scaled_many"]

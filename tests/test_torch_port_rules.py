@@ -6,8 +6,8 @@
 * Every entry point runs on the card unless asked for the CPU, and raises
   when there is no card; it never falls back to the CPU on its own.
 * The wrappers of the kernels check what they are given before any launch.
-* The configuration and the anchor calls cross from the JAX package as
-  plain dicts.
+* The configuration, the anchor calls and the phmm batches cross from the
+  JAX package as plain dicts.
 * The kernel's launch configuration is a host function of the padded query
   width alone.
 """
@@ -30,15 +30,17 @@ from genomicsbench_tpu_torch.cli import main as torch_cli_main
 from genomicsbench_tpu_torch.config import BswParams, bsw_params_from_dict
 from genomicsbench_tpu_torch.io.anchors import anchor_calls_from_dicts, write_anchor_calls
 from genomicsbench_tpu_torch.io.pairs import PairBatch, write_pairs
-from genomicsbench_tpu_torch.ops import bsw, chain
+from genomicsbench_tpu_torch.io.phmm_text import PhmmBatch, PhmmRead, write_phmm_testfile
+from genomicsbench_tpu_torch.ops import bsw, chain, pairhmm
 
 from torch_chain_cases import edge_cases
+from torch_phmm_cases import edge_cases as phmm_edge_cases
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # the port, chip_smoke.py and the test helpers it imports on the card
 PORT_FILES = sorted((ROOT / "genomicsbench_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_bsw_cases.py",
-    ROOT / "tests" / "torch_chain_cases.py",
+    ROOT / "tests" / "torch_chain_cases.py", ROOT / "tests" / "torch_phmm_cases.py",
 ]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "genomicsbench_tpu")
 
@@ -87,6 +89,8 @@ def test_port_import_loads_no_jax():
             "import genomicsbench_tpu_torch.ops.bsw, genomicsbench_tpu_torch.cli\n"
             "import genomicsbench_tpu_torch.ops.chain, genomicsbench_tpu_torch.io\n"
             "import genomicsbench_tpu_torch.oracle\n"
+            "import genomicsbench_tpu_torch.ops.pairhmm, genomicsbench_tpu_torch.io.phmm_text\n"
+            "import genomicsbench_tpu_torch.oracle.pairhmm\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'genomicsbench_tpu')]\n"
             "assert not bad, bad\n")
@@ -192,6 +196,99 @@ def test_chain_wrapper_checks_inputs(fault, monkeypatch):
     scores, parents, peak, visited = chain.chain_dp(*_chain_args())
     assert scores.shape == parents.shape == peak.shape == (42,)
     assert visited.dtype == torch.int64 and visited.shape == (5,)
+
+
+def _tiny_phmm():
+    return phmm_edge_cases()["strip_edges"][:2]
+
+
+@pytest.mark.parametrize("entry", ["pairhmm_batch", "cli"])
+def test_phmm_entry_points_raise_without_card(no_card, entry, tmp_path):
+    reads, haps = _tiny_phmm()
+    path = tmp_path / "phmm.txt"
+    write_phmm_testfile(str(path), [PhmmBatch(reads=[PhmmRead(**r) for r in reads],
+                                              haps=haps)])
+    run = {
+        "pairhmm_batch": lambda *dev: pairhmm.pairhmm_batch(reads, haps, device=dev[0])
+        if dev else pairhmm.pairhmm_batch(reads, haps),
+        "cli": lambda *dev: torch_cli_main(["phmm", "-f", str(path)]
+                                           + (["--device", dev[0]] if dev else [])),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run("cuda:0")
+    run("cpu")
+
+
+def _phmm_tables():
+    reads, haps = _tiny_phmm()
+    pairs = [(r, h) for r in range(len(reads)) for h in range(len(haps))]
+    t = pairhmm.upload_pairs(reads, haps, pairs, "cpu")
+    fields = {f.name: getattr(t, f.name) for f in dataclasses.fields(t)}
+    fields = {k: (v.clone() if isinstance(v, torch.Tensor) else
+                  {n: a.copy() for n, a in v.items()}) for k, v in fields.items()}
+    return pairhmm.PairTables(**fields)
+
+
+@pytest.mark.parametrize("fault", ["dtype", "contiguity", "offs_order", "offs_end",
+                                   "pair_index", "idx_range", "idx_dtype", "host_idx",
+                                   "fp16"])
+def test_phmm_wrapper_checks_inputs(fault, monkeypatch):
+    """pairhmm_forward refuses what the kernel does not take, on the host,
+    before it would build or launch anything."""
+    from genomicsbench_tpu_torch import _kernels
+
+    def no_launch():
+        raise AssertionError("reached the kernel")
+
+    monkeypatch.setattr(_kernels, "load", no_launch)
+    t, idx, dtype, kw = _phmm_tables(), None, torch.float32, {}
+    if fault == "dtype":
+        t.q, err = t.q.to(torch.int32), TypeError
+    elif fault == "contiguity":
+        t.d, err = torch.stack([t.d, t.d], 1)[:, 0], ValueError
+    elif fault == "offs_order":
+        t.host["r_off"][2], err = t.host["r_off"][3] + 1, ValueError
+    elif fault == "offs_end":
+        t.host["h_off"][-1], err = t.host["h_off"][-1] - 1, ValueError
+    elif fault == "pair_index":
+        t.host["pair_h"][4], err = len(t.host["h_off"]) - 1, IndexError
+    elif fault == "idx_range":
+        idx, err = torch.tensor([0, t.n_pairs], dtype=torch.int64), IndexError
+    elif fault == "idx_dtype":
+        idx, err = torch.tensor([0, 1], dtype=torch.int32), TypeError
+    elif fault == "host_idx":
+        idx, err = torch.tensor([0, 1]), ValueError
+        kw = dict(host_idx=np.array([0, 1, 2]))
+    else:
+        dtype, err = torch.float16, TypeError
+    with pytest.raises(err):
+        pairhmm.pairhmm_forward(t, idx, dtype, **kw)
+    for dtype in (torch.float32, torch.float64):
+        out = pairhmm.pairhmm_forward(_phmm_tables(), torch.tensor([9, 0, 3]), dtype)
+        assert out.dtype == dtype and out.shape == (3,)
+
+
+def test_phmm_upload_refuses_bad_pairs():
+    reads, haps = _tiny_phmm()
+    with pytest.raises(IndexError, match="haplotype"):
+        pairhmm.upload_pairs(reads, haps, [(0, 0), (1, len(haps))], "cpu")
+    with pytest.raises(IndexError, match="read"):
+        pairhmm.upload_pairs(reads, haps, [(-1, 0)], "cpu")
+
+
+@pytest.mark.parametrize("h_max, itemsize, warps, warp_bytes, scratch", [
+    (400, 4, 8, 5216, False),       # the main path, float32
+    (400, 8, 8, 10032, False),      # the main path, float64: 80 KB per block
+    (10_000, 4, 1, 130016, False),  # one warp fills most of a block
+    (10_000, 8, 8, 250032, True),   # past a block's shared memory
+])
+def test_phmm_launch_is_a_function_of_h_max(h_max, itemsize, warps, warp_bytes, scratch):
+    assert pairhmm.phmm_launch(h_max, itemsize) == (warps, warp_bytes, scratch)
+    assert warp_bytes >= 3 * (h_max + 1) * itemsize + h_max
+    if not scratch:
+        assert warps * warp_bytes <= pairhmm.SMEM_MAX_BYTES
 
 
 def test_resolve_device():
