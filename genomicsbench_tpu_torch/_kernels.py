@@ -37,6 +37,9 @@ SOURCES = {
     "pairhmm": (CSRC / "pairhmm.cu",
                 {name: [_P] * 11 + [_L, _P, _L, _P] + [_I] * 3 + [_P] * 2
                  for name in ("gb_pairhmm_f32", "gb_pairhmm_f64")}),
+    "abea": (CSRC / "abea.cu",
+             {"gb_abea_fill": [_P] * 7 + [_L] + [_P] * 6,
+              "gb_abea_backtrack": [_P] * 11 + [_L] + [_P] * 2}),
 }
 
 _lib: types.SimpleNamespace | None = None

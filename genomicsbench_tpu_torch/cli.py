@@ -8,7 +8,7 @@ format.
 
     python -m genomicsbench_tpu_torch <subcommand> [args]
 
-Subcommands: bsw, phmm, chain.
+Subcommands: bsw, phmm, chain, eventalign.
 """
 
 from __future__ import annotations
@@ -103,6 +103,45 @@ def cmd_chain(args):
     print(f"Time in kernel: {dt:.2f} sec", file=sys.stderr)
 
 
+def cmd_eventalign(args):
+    """f5c eventalign in event-space mode over raw-signal and read-sequence
+    inputs (run-gpu.sh:34,45; TSV format eventalign.c:1651-1941): signals
+    from an .npz (one array per read name) paired with a FASTA/Q.  The TSV
+    goes to stdout, byte for byte as the JAX package's CLI writes it, then
+    the summary line on stderr."""
+    from genomicsbench_tpu_torch import resolve_device
+    from genomicsbench_tpu_torch.config import load_abea_profile
+    from genomicsbench_tpu_torch.io import encode_seq, load_signals, read_fastx
+    from genomicsbench_tpu_torch.ops import abea
+    from genomicsbench_tpu_torch.ops.eventalign import eventalign_reads
+
+    if args.bam or args.genome or args.sam:
+        raise NotImplementedError(
+            "eventalign -b/-g and --sam (reference coordinates through ref_align and "
+            "BAM input) are not ported yet; run without them for event-space rows")
+    resolve_device(args.device)
+    if args.model:
+        model_mean, model_stdv = abea.load_model_tsv(args.model)
+    else:
+        model_mean, model_stdv = abea.synthetic_model(seed=0)
+    sig = load_signals(args.signals)
+    seqs, raws = [], []
+    for name, seq in read_fastx(args.reads):
+        if name in sig:
+            seqs.append(encode_seq(seq.decode()))
+            raws.append(np.asarray(sig[name], np.float32))
+    profile = load_abea_profile(args.profile) if args.profile else None
+    t0 = time.perf_counter()
+    results = eventalign_reads(raws, seqs, model_mean, model_stdv, tsv_fp=sys.stdout,
+                               sample_rate=args.sample_rate, profile=profile,
+                               device=args.device)
+    dt = time.perf_counter() - t0
+    n_ok = sum(1 for r in results if r.flag == 0)
+    entries = sum(len(r.alignment.event_idx) for r in results if r.alignment)
+    print(f"[eventalign] {n_ok}/{len(results)} reads aligned, total entries: {entries}; "
+          f"Data processing time: {dt:.3f} sec", file=sys.stderr)
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="gbench", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -139,6 +178,26 @@ def build_parser():
     s.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     s.set_defaults(fn=cmd_chain)
+
+    s = sub.add_parser("eventalign", help="adaptive banded event alignment")
+    s.add_argument("--signals", required=True, help=".npz of raw signals")
+    s.add_argument("-r", "--reads", required=True,
+                   help="FASTA/Q of read sequences")
+    s.add_argument("-b", "--bam", help="alignments (with -g; not ported yet)")
+    s.add_argument("-g", "--genome", help="reference FASTA (with -b; not ported yet)")
+    s.add_argument("-B", "--batch-bases", default=None,
+                   help="accepted for f5c parity (use --profile for "
+                        "batch control)")
+    s.add_argument("--sam", metavar="OUT_BAM", help="with -b/-g (not ported yet)")
+    s.add_argument("--model", help="pore model TSV (else synthetic)")
+    s.add_argument("--sample-rate", type=float, default=4000.0)
+    s.add_argument("--profile",
+                   help="runtime batching profile: preset name (v5e, "
+                        "v5e-lite, cpu-test) or a file in f5c's 7-field "
+                        "--profile format (f5c.c:1795-1844)")
+    s.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    s.set_defaults(fn=cmd_eventalign)
     return p
 
 

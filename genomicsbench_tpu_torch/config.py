@@ -1,9 +1,10 @@
 """Typed parameter groups (the port's own copy of genomicsbench_tpu/config.py).
 
 Defaults mirror the reference benchmark CLIs exactly, because the parameter
-values are part of the output-parity contract.  This path has no learned
+values are part of the output-parity contract.  These paths have no learned
 weights: what crosses over from the JAX package is this configuration,
-as the plain dict of `dataclasses.asdict`, and the numpy pair arrays.
+as the plain dict of `dataclasses.asdict` (`BswParams(**d)`,
+`AbeaRunProfile(**d)`), and numpy arrays.
 """
 
 from __future__ import annotations
@@ -45,3 +46,49 @@ def bsw_params_from_dict(d: dict) -> BswParams:
     """The port's BswParams from `dataclasses.asdict` of the JAX package's
     (same field names and meanings; an unknown field raises TypeError)."""
     return BswParams(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbeaRunProfile:
+    """f5c --profile equivalent (set_profile/set_opt_profile,
+    f5c.c:1795-1844): runtime batching knobs for eventalign, the port's copy
+    of the JAX package's (config.py:214-257).  eventalign_reads reads
+    batch_size, batch_size_bases and ultra_thresh (reads longer than it go
+    into batches of their own); the other fields are f5c's, kept for the
+    profile file's format."""
+
+    batch_size: int = 512           # reads per device batch
+    batch_size_bases: int = 5_000_000
+    num_workers: int = 4            # loader pool (the --iop analog)
+    ultra_thresh: int = 100_000     # bases; longer reads batch separately
+    max_readlen: float = 5.0        # f5c cuda_max_readlen (x average)
+    avg_epk: float = 2.0            # cuda_avg_events_per_kmer
+    max_epk: float = 5.0            # cuda_max_avg_events_per_kmer
+
+
+ABEA_PROFILES = {
+    # presets in the spirit of f5c's jetson-* machine table (f5c.c:1797-1803)
+    "v5e": AbeaRunProfile(),
+    "v5e-lite": AbeaRunProfile(batch_size=128, batch_size_bases=1_000_000,
+                               num_workers=2),
+    "cpu-test": AbeaRunProfile(batch_size=16, batch_size_bases=100_000,
+                               num_workers=1, ultra_thresh=10_000),
+}
+
+
+def load_abea_profile(name_or_path: str) -> AbeaRunProfile:
+    """Preset name, else a file in f5c's 7-field profile format
+    (f5c.c:1810-1815: max_readlen avg_epk max_epk batch_size
+    batch_size_bases num_thread ultra_thresh)."""
+    if name_or_path in ABEA_PROFILES:
+        return ABEA_PROFILES[name_or_path]
+    with open(name_or_path) as f:
+        toks = f.read().split()
+    if len(toks) < 7:
+        raise ValueError("Malformed profile config file.")  # f5c.c:1822
+    return AbeaRunProfile(
+        max_readlen=float(toks[0]), avg_epk=float(toks[1]),
+        max_epk=float(toks[2]), batch_size=int(toks[3]),
+        batch_size_bases=int(toks[4]), num_workers=int(toks[5]),
+        ultra_thresh=int(toks[6]),
+    )

@@ -22,6 +22,10 @@ from genomicsbench_tpu_torch.oracle.bsw import banded_sw_oracle
 
 from torch_bsw_cases import PARAMS, STRESS, load_golden, random_pairs, rows, stress_pairs
 
+# pytest-xdist runs several workers on the CPU's cores; torch's own thread
+# pool in each would oversubscribe them and slow the run many times over
+torch.set_num_threads(1)
+
 
 def _port_batch(pairs, params, max_t, max_q):
     b = pack_pairs(pairs, max_t, max_q)

@@ -26,6 +26,10 @@ from genomicsbench_tpu_torch.oracle.chain import chain_dp_oracle
 
 from torch_chain_cases import GOLDEN, bench_chain_calls, edge_cases, load_golden
 
+# pytest-xdist runs several workers on the CPU's cores; torch's own thread
+# pool in each would oversubscribe them and slow the run many times over
+torch.set_num_threads(1)
+
 EDGES = edge_cases()
 
 

@@ -45,6 +45,10 @@ from genomicsbench_tpu_torch.oracle.pairhmm import (_PH2PR_F32, _PH2PR_F64, PH2P
 from test_independent_contracts import _mp_forward_log10
 from torch_phmm_cases import edge_cases, gen_phmm_workload
 
+# pytest-xdist runs several workers on the CPU's cores; torch's own thread
+# pool in each would oversubscribe them and slow the run many times over
+torch.set_num_threads(1)
+
 EDGES = edge_cases()
 SAMPLE_PAIRS = 300
 F32_LOG10_TOL = 1e-5

@@ -8,6 +8,8 @@
 * The wrappers of the kernels check what they are given before any launch.
 * The configuration, the anchor calls and the phmm batches cross from the
   JAX package as plain dicts.
+* The host library (native/peaks.cpp) is built into a temporary file and
+  moved into place, so concurrent test workers never load half of it.
 * The kernel's launch configuration is a host function of the padded query
   width alone.
 """
@@ -31,16 +33,24 @@ from genomicsbench_tpu_torch.config import BswParams, bsw_params_from_dict
 from genomicsbench_tpu_torch.io.anchors import anchor_calls_from_dicts, write_anchor_calls
 from genomicsbench_tpu_torch.io.pairs import PairBatch, write_pairs
 from genomicsbench_tpu_torch.io.phmm_text import PhmmBatch, PhmmRead, write_phmm_testfile
-from genomicsbench_tpu_torch.ops import bsw, chain, pairhmm
+from genomicsbench_tpu_torch.ops import abea, bsw, chain, eventalign, pairhmm
 
+from torch_abea_cases import _model as abea_model
+from torch_abea_cases import edge_cases as abea_edge_cases
+from torch_abea_cases import eventalign_reads_case
 from torch_chain_cases import edge_cases
 from torch_phmm_cases import edge_cases as phmm_edge_cases
+
+# pytest-xdist runs several workers on the CPU's cores; torch's own thread
+# pool in each would oversubscribe them and slow the run many times over
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # the port, chip_smoke.py and the test helpers it imports on the card
 PORT_FILES = sorted((ROOT / "genomicsbench_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_bsw_cases.py",
     ROOT / "tests" / "torch_chain_cases.py", ROOT / "tests" / "torch_phmm_cases.py",
+    ROOT / "tests" / "torch_abea_cases.py",
 ]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "genomicsbench_tpu")
 
@@ -91,6 +101,8 @@ def test_port_import_loads_no_jax():
             "import genomicsbench_tpu_torch.oracle\n"
             "import genomicsbench_tpu_torch.ops.pairhmm, genomicsbench_tpu_torch.io.phmm_text\n"
             "import genomicsbench_tpu_torch.oracle.pairhmm\n"
+            "import genomicsbench_tpu_torch.ops.abea, genomicsbench_tpu_torch.ops.eventalign\n"
+            "import genomicsbench_tpu_torch.native, genomicsbench_tpu_torch.config\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'genomicsbench_tpu')]\n"
             "assert not bad, bad\n")
@@ -380,3 +392,120 @@ def test_wrapper_launch_reads_only_query_width():
     widths = [0, 191, 1100, 8000, 30000]
     first = [bsw.bsw_launch(q) for q in widths]
     assert [bsw.bsw_launch(q) for q in reversed(widths)] == first[::-1]
+
+
+@pytest.mark.parametrize("entry", ["align_batch", "eventalign_reads", "cli"])
+def test_abea_entry_points_raise_without_card(no_card, entry, tmp_path):
+    seqs, evs, sc = abea_edge_cases(longest=200)["one_kmer"]
+    raws, ea_seqs = eventalign_reads_case(1, seed=0, lo=30, hi=31)
+    np.savez(tmp_path / "x.npz", r0=raws[0])
+    (tmp_path / "x.fa").write_text(">r0\n" + "".join("ACGT"[c] for c in ea_seqs[0]) + "\n")
+    mean, stdv = abea_model()
+    run = {
+        "align_batch": lambda *dev: abea.align_batch(seqs, evs, mean, stdv, sc, *dev),
+        "eventalign_reads": lambda *dev: eventalign.eventalign_reads(
+            raws, ea_seqs, mean, stdv, **({"device": dev[0]} if dev else {})),
+        "cli": lambda *dev: torch_cli_main(
+            ["eventalign", "--signals", str(tmp_path / "x.npz"), "-r", str(tmp_path / "x.fa")]
+            + (["--device", dev[0]] if dev else [])),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run("cuda:0")
+    run("cpu")
+
+
+def _abea_tables():
+    seqs, evs, sc = abea_edge_cases(longest=200)["few_events"]
+    t = abea.upload_reads(seqs, evs, *abea_model(), sc, "cpu")
+    fields = {f.name: getattr(t, f.name) for f in dataclasses.fields(t)}
+    fields = {k: (v.clone() if isinstance(v, torch.Tensor) else
+                  {n: a.copy() for n, a in v.items()}) for k, v in fields.items()}
+    return abea.ReadTables(**fields)
+
+
+@pytest.mark.parametrize("fault", ["dtype", "contiguity", "model_shape", "offs_order",
+                                   "offs_end", "band_off", "empty_read", "fill_dtype",
+                                   "fill_length"])
+def test_abea_wrappers_check_inputs(fault, monkeypatch):
+    """abea_fill and abea_backtrack refuse what the kernels do not take, on
+    the host, before they would build or launch anything."""
+    from genomicsbench_tpu_torch import _kernels
+
+    def no_launch():
+        raise AssertionError("reached the kernel")
+
+    monkeypatch.setattr(_kernels, "load", no_launch)
+    t = _abea_tables()
+    f = abea.abea_fill(_abea_tables())
+    if fault == "dtype":
+        t.events, err = t.events.double(), TypeError
+    elif fault == "contiguity":
+        t.ranks, err = torch.stack([t.ranks, t.ranks], 1)[:, 0], ValueError
+    elif fault == "model_shape":
+        t.model, err = t.model[:, :2048].contiguous(), ValueError
+    elif fault == "offs_order":
+        t.host["e_off"][1], err = t.host["e_off"][2] + 1, ValueError
+    elif fault == "offs_end":
+        t.host["k_off"][-1], err = t.host["k_off"][-1] - 1, ValueError
+    elif fault == "band_off":
+        t.host["band_off"][1], err = t.host["band_off"][1] + 1, ValueError
+    elif fault == "empty_read":     # a read of no k-mer
+        t.host["k_off"][1], t.host["band_off"][1] = 0, t.host["e_off"][1]
+        err = ValueError
+    elif fault == "fill_dtype":
+        f.best_ev, err = f.best_ev.long(), TypeError
+    else:
+        f.traces, err = f.traces[:-1], ValueError
+    with pytest.raises(err):
+        if fault.startswith("fill"):
+            abea.abea_backtrack(t, f)
+        else:
+            abea.abea_fill(t)
+    good = _abea_tables()
+    out = abea.abea_backtrack(good, abea.abea_fill(good))
+    assert out.dtype == torch.int32 and out.shape == (4 * good.n_reads + 2 * good.n_bands,)
+
+
+def test_abea_marshal_refuses_bad_reads():
+    seqs, evs, sc = abea_edge_cases(longest=200)["few_events"]
+    mean, stdv = abea_model()
+    with pytest.raises(ValueError, match="0..3"):
+        abea.upload_reads([np.array([0, 1, 4, 2, 3, 1, 0])] + seqs[1:], evs, mean, stdv, sc,
+                          "cpu")
+    with pytest.raises(ValueError, match="shorter"):
+        abea.upload_reads([seqs[0][:5]] + seqs[1:], evs, mean, stdv, sc, "cpu")
+    with pytest.raises(ValueError, match="4096"):
+        abea.upload_reads(seqs, evs, mean[:1024], stdv[:1024], sc, "cpu")
+
+
+def test_native_build_replaces_a_temporary_file(tmp_path, monkeypatch):
+    """The host library is compiled into a temporary name beside its final
+    path and moved into place with os.replace."""
+    import os
+
+    from genomicsbench_tpu_torch import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    calls = []
+    real_run, real_replace = subprocess.run, os.replace
+
+    def run(cmd, **kw):
+        calls.append(("cc", cmd[cmd.index("-o") + 1]))
+        return real_run(cmd, **kw)
+
+    def replace(src, dst):
+        calls.append(("replace", str(src), str(dst)))
+        return real_replace(src, dst)
+
+    monkeypatch.setattr(native.subprocess, "run", run)
+    monkeypatch.setattr(native.os, "replace", replace)
+    lib = native.build()
+    assert lib == native.library_path() and lib.exists()
+    assert [c[0] for c in calls] == ["cc", "replace"]
+    tmp = calls[0][1]
+    assert tmp != str(lib) and tmp.endswith(".tmp") and os.path.dirname(tmp) == str(lib.parent)
+    assert calls[1][1:] == (tmp, str(lib)) and not os.path.exists(tmp)
+    calls.clear()
+    assert native.build() == lib and calls == []         # built once, then reused
