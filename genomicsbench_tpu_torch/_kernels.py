@@ -5,8 +5,11 @@ with nvcc for sm_90a into `build/genomicsbench_tpu_torch/` at the repo root,
 one nvcc process per source that has no library yet, all started together.
 Each library's name carries a hash of its source and the flags (so an edit
 rebuilds and an unchanged source is reused), with nvcc's log beside it.  The
-libraries are loaded with ctypes.  Nothing is built or loaded when this
-module is imported.
+libraries are loaded with ctypes.  `build()` and `load()` hold one module
+lock, and each nvcc writes a temporary file named by process and thread
+that `os.replace` moves into place, so threads and processes that load at
+once never run two builds into one file or load half a library.  Nothing is
+built or loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import types
 from pathlib import Path
 
@@ -40,8 +44,12 @@ SOURCES = {
     "abea": (CSRC / "abea.cu",
              {"gb_abea_fill": [_P] * 7 + [_L] + [_P] * 6,
               "gb_abea_backtrack": [_P] * 11 + [_L] + [_P] * 2}),
+    "poa": (CSRC / "poa.cu",
+            {"gb_poa_fill": [_P] * 7 + [_L] + [_I] * 11 + [_P] * 7,
+             "gb_poa_backtrack": [_P] * 5 + [_L] + [_I] * 5 + [_P] * 3}),
 }
 
+_lock = threading.Lock()
 _lib: types.SimpleNamespace | None = None
 _cdlls: list[ctypes.CDLL] = []
 
@@ -66,13 +74,18 @@ def build() -> dict[str, str]:
     """Compile every source whose library is missing, one nvcc each, all at
     once.  Returns {name: nvcc's log} (ptxas registers, spills); raises if
     nvcc is missing or any build fails."""
+    with _lock:
+        return _build()
+
+
+def _build() -> dict[str, str]:
     procs = {}
     for name, (source, _) in SOURCES.items():
         lib = library_path(name)
         if lib.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         procs[name] = (tmp, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -96,16 +109,17 @@ def load() -> types.SimpleNamespace:
     """Every C entry point of the kernel libraries, as attributes (e.g.
     `load().gb_chain_dp`), built first if needed."""
     global _lib
-    if _lib is None:
-        build()
-        fns = {}
-        for name, (_, entries) in SOURCES.items():
-            lib = ctypes.CDLL(str(library_path(name)))
-            _cdlls.append(lib)      # kept open for the life of the process
-            for fn_name, argtypes in entries.items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                fns[fn_name] = fn
-        _lib = types.SimpleNamespace(**fns)
-    return _lib
+    with _lock:
+        if _lib is None:
+            _build()
+            fns = {}
+            for name, (_, entries) in SOURCES.items():
+                lib = ctypes.CDLL(str(library_path(name)))
+                _cdlls.append(lib)      # kept open for the life of the process
+                for fn_name, argtypes in entries.items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[fn_name] = fn
+            _lib = types.SimpleNamespace(**fns)
+        return _lib

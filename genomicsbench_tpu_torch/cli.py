@@ -8,7 +8,7 @@ format.
 
     python -m genomicsbench_tpu_torch <subcommand> [args]
 
-Subcommands: bsw, phmm, chain, eventalign.
+Subcommands: bsw, phmm, chain, poa, eventalign.
 """
 
 from __future__ import annotations
@@ -103,6 +103,31 @@ def cmd_chain(args):
     print(f"Time in kernel: {dt:.2f} sec", file=sys.stderr)
 
 
+def cmd_poa(args):
+    """poa -s input.fasta [-m -x -o g1,g2 -e e1,e2] (msa_spoa_omp.cpp:119-148).
+
+    Prints each window's consensus as the JAX package's CLI does, byte for
+    byte, then the runtime line on stderr."""
+    from genomicsbench_tpu_torch.config import PoaParams
+    from genomicsbench_tpu_torch.io.msa_fasta import decode_seq, read_msa_windows
+    from genomicsbench_tpu_torch.ops.poa import msa_consensus_batch
+
+    o = [int(x) for x in args.gap_open.split(",")]
+    e = [int(x) for x in args.gap_ext.split(",")]
+    params = PoaParams(
+        match=args.match, mismatch=-abs(args.mismatch),
+        gap_open1=-abs(o[0]), gap_ext1=-abs(e[0]),
+        gap_open2=-abs(o[-1]), gap_ext2=-abs(e[-1]),
+    )
+    windows = read_msa_windows(args.seqfile)
+    t0 = time.perf_counter()
+    cons = msa_consensus_batch(windows, params, device=args.device)
+    dt = time.perf_counter() - t0
+    for i, c in enumerate(cons):
+        print(f">Consensus_sequence_{i}\n{decode_seq(c)}")
+    print(f"Runtime: {dt:.2f} sec ({len(windows)} windows)", file=sys.stderr)
+
+
 def cmd_eventalign(args):
     """f5c eventalign in event-space mode over raw-signal and read-sequence
     inputs (run-gpu.sh:34,45; TSV format eventalign.c:1651-1941): signals
@@ -178,6 +203,18 @@ def build_parser():
     s.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     s.set_defaults(fn=cmd_chain)
+
+    s = sub.add_parser("poa", help="partial-order MSA consensus")
+    s.add_argument("-s", "--seqfile", required=True)
+    s.add_argument("-t", type=int, default=1,
+                   help="accepted for run-cpu.sh parity (ignored)")
+    s.add_argument("-m", "--match", type=int, default=2)
+    s.add_argument("-x", "--mismatch", type=int, default=4)
+    s.add_argument("-o", "--gap-open", default="4,24")
+    s.add_argument("-e", "--gap-ext", default="2,1")
+    s.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    s.set_defaults(fn=cmd_poa)
 
     s = sub.add_parser("eventalign", help="adaptive banded event alignment")
     s.add_argument("--signals", required=True, help=".npz of raw signals")

@@ -49,6 +49,29 @@ def bsw_params_from_dict(d: dict) -> BswParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class PoaParams:
+    """spoa partial-order alignment.
+
+    Reference: benchmarks/poa/msa_spoa_omp.cpp:157-162 defaults
+    (m=2, x=-4, o1=-4, e1=-2, o2=-24, e2=-1), algorithm 1 = global NW.
+    Penalties are stored negative, as the reference's flags give them.
+    """
+
+    match: int = 2
+    mismatch: int = -4
+    gap_open1: int = -4
+    gap_ext1: int = -2
+    gap_open2: int = -24
+    gap_ext2: int = -1
+
+
+def poa_params_from_dict(d: dict) -> PoaParams:
+    """The port's PoaParams from `dataclasses.asdict` of the JAX package's
+    (same field names and meanings; an unknown field raises TypeError)."""
+    return PoaParams(**d)
+
+
+@dataclasses.dataclass(frozen=True)
 class AbeaRunProfile:
     """f5c --profile equivalent (set_profile/set_opt_profile,
     f5c.c:1795-1844): runtime batching knobs for eventalign, the port's copy

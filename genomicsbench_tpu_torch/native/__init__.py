@@ -1,12 +1,16 @@
 """The port's host library (C++), built with g++ and loaded with ctypes.
 
-`peaks.cpp` holds the sequential peak state machine of event detection.
-At first use it is compiled with `g++ -O2` into `build/genomicsbench_tpu_torch/`
-at the repo root, under a name that carries a hash of the source and the
-flags.  The build writes a temporary file and moves it into place with
-`os.replace`, so a process that loads the library concurrently sees all of
-it or nothing.  There is no Python fallback: without g++ the build raises.
-Nothing is built or loaded when this module is imported.
+Two sources, listed in `SOURCES` with their C entry points: `peaks.cpp`, the
+sequential peak state machine of event detection, and `poa.cpp`, the
+partial-order-alignment graph engine (fusion, topological export, path
+decoding, consensus).  At first use each source is compiled with `g++ -O2`
+into its own library under `build/genomicsbench_tpu_torch/` at the repo
+root, named with a hash of the source and the flags.  The build holds a
+module lock, writes a temporary file named by process and thread, and moves
+it into place with `os.replace`, so a process that loads the library
+concurrently sees all of it or nothing.  There is no Python fallback:
+without g++ the build raises.  Nothing is built or loaded when this module
+is imported.
 """
 
 from __future__ import annotations
@@ -17,28 +21,44 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 from pathlib import Path
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent / "peaks.cpp"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "genomicsbench_tpu_torch"
+HERE = Path(__file__).resolve().parent
+BUILD_DIR = HERE.parent.parent / "build" / "genomicsbench_tpu_torch"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
+_P, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_float
+# Each source's C entry points: (return type, argument types).  Every array
+# is a c_void_p, passed as an address (numpy's `ctypes.data`).
+SOURCES = {
+    "peaks": (HERE / "peaks.cpp", {
+        "gb_peak_detector": (_I64, [_P, _P, _I64, _I32, _I32, _F32, _F32, _F32, _P, _I64]),
+    }),
+    "poa": (HERE / "poa.cpp", {
+        "gb_poa_fuse": (_I64, [_P] * 12 + [_P, _P, _I64, _I64, _P, _P, _I64, _P, _I32]),
+        "gb_poa_export": (_I64, [_P] * 10 + [_I64] * 3 + [_P] * 5),
+        "gb_poa_export_packed": (_I64, [_P] * 10 + [_I64] * 3 + [_P] * 3),
+        "gb_poa_decode_path": (None, [_P, _I64, _I32, _I32, _P, _I64, _P, _P, _P]),
+        "gb_poa_consensus": (_I64, [_P] * 11 + [_I64, _P]),
+    }),
+}
+
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: types.SimpleNamespace | None = None
+_cdlls: list[ctypes.CDLL] = []
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name][0].read_bytes())
     digest.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libgbpeaks-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libgb{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library unless it exists; returns its path.  Raises if
-    g++ is missing or fails."""
-    lib = library_path()
+def _build_one(name: str) -> Path:
+    lib = library_path(name)
     if lib.exists():
         return lib
     cxx = shutil.which("g++")
@@ -46,28 +66,39 @@ def build() -> Path:
         raise RuntimeError("g++ not found on PATH: the port's host library cannot be built")
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    source = SOURCES[name][0]
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SOURCE.name} (exit {proc.returncode}):\n"
+        raise RuntimeError(f"g++ failed for {source.name} (exit {proc.returncode}):\n"
                            f"{proc.stderr}")
     os.replace(tmp, lib)        # atomic: a concurrent loader sees all or nothing
     return lib
 
 
-def load() -> ctypes.CDLL:
+def build() -> dict[str, Path]:
+    """Compile every source whose library is missing; returns {name: library
+    path}.  Raises if g++ is missing or fails."""
+    with _lock:
+        return {name: _build_one(name) for name in SOURCES}
+
+
+def load() -> types.SimpleNamespace:
+    """Every C entry point of the host library, as attributes (e.g.
+    `load().gb_poa_fuse`), built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            c_f32p = ctypes.POINTER(ctypes.c_float)
-            lib.gb_peak_detector.restype = ctypes.c_int64
-            lib.gb_peak_detector.argtypes = [
-                c_f32p, c_f32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ]
-            _lib = lib
+            fns = {}
+            for name, (_, entries) in SOURCES.items():
+                lib = ctypes.CDLL(str(_build_one(name)))
+                _cdlls.append(lib)      # kept open for the life of the process
+                for fn_name, (restype, argtypes) in entries.items():
+                    fn = getattr(lib, fn_name)
+                    fn.restype = restype
+                    fn.argtypes = argtypes
+                    fns[fn_name] = fn
+            _lib = types.SimpleNamespace(**fns)
         return _lib
 
 
@@ -81,10 +112,8 @@ def peak_detector(t1: np.ndarray, t2: np.ndarray, w1: int, w2: int,
         raise ValueError(f"t1 and t2 must be one-dimensional of one length, got "
                          f"{t1.shape} and {t2.shape}")
     out = np.empty(len(t1) + 1, np.int64)
-    c_f32p = ctypes.POINTER(ctypes.c_float)
-    n = lib.gb_peak_detector(t1.ctypes.data_as(c_f32p), t2.ctypes.data_as(c_f32p), len(t1),
-                             w1, w2, th1, th2, peak_height,
-                             out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(out))
+    n = lib.gb_peak_detector(t1.ctypes.data, t2.ctypes.data, len(t1), w1, w2, th1, th2,
+                             peak_height, out.ctypes.data, len(out))
     if n < 0:
         raise ValueError("peak buffer overflow")
     return out[:n]

@@ -7,7 +7,8 @@ from genomicsbench_tpu_torch.oracle.pairhmm import (PH2PR_F64_CPOW, encode_bases
                                                     pairhmm_forward_oracle,
                                                     pairhmm_forward_scaled,
                                                     pairhmm_forward_scaled_many)
+from genomicsbench_tpu_torch.oracle.poa import PoaGraph, msa_consensus_oracle
 
-__all__ = ["PH2PR_F64_CPOW", "banded_sw_oracle", "chain_dp_oracle", "encode_bases",
-           "make_anchors", "pairhmm_forward_oracle", "pairhmm_forward_scaled",
+__all__ = ["PH2PR_F64_CPOW", "PoaGraph", "banded_sw_oracle", "chain_dp_oracle", "encode_bases",
+           "make_anchors", "msa_consensus_oracle", "pairhmm_forward_oracle", "pairhmm_forward_scaled",
            "pairhmm_forward_scaled_many"]

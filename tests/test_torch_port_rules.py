@@ -8,8 +8,10 @@
 * The wrappers of the kernels check what they are given before any launch.
 * The configuration, the anchor calls and the phmm batches cross from the
   JAX package as plain dicts.
-* The host library (native/peaks.cpp) is built into a temporary file and
-  moved into place, so concurrent test workers never load half of it.
+* The host library (native/peaks.cpp and native/poa.cpp, one library per
+  source) is built into a temporary file and moved into place, so
+  concurrent test workers never load half of it; the kernel build holds a
+  lock, so two threads that load at once run one nvcc per source.
 * The kernel's launch configuration is a host function of the padded query
   width alone.
 """
@@ -33,13 +35,14 @@ from genomicsbench_tpu_torch.config import BswParams, bsw_params_from_dict
 from genomicsbench_tpu_torch.io.anchors import anchor_calls_from_dicts, write_anchor_calls
 from genomicsbench_tpu_torch.io.pairs import PairBatch, write_pairs
 from genomicsbench_tpu_torch.io.phmm_text import PhmmBatch, PhmmRead, write_phmm_testfile
-from genomicsbench_tpu_torch.ops import abea, bsw, chain, eventalign, pairhmm
+from genomicsbench_tpu_torch.ops import abea, bsw, chain, eventalign, pairhmm, poa
 
 from torch_abea_cases import _model as abea_model
 from torch_abea_cases import edge_cases as abea_edge_cases
 from torch_abea_cases import eventalign_reads_case
 from torch_chain_cases import edge_cases
 from torch_phmm_cases import edge_cases as phmm_edge_cases
+from torch_poa_cases import dag_planes, random_dag, small_windows, write_windows_fasta
 
 # pytest-xdist runs several workers on the CPU's cores; torch's own thread
 # pool in each would oversubscribe them and slow the run many times over
@@ -50,7 +53,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "genomicsbench_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_bsw_cases.py",
     ROOT / "tests" / "torch_chain_cases.py", ROOT / "tests" / "torch_phmm_cases.py",
-    ROOT / "tests" / "torch_abea_cases.py",
+    ROOT / "tests" / "torch_abea_cases.py", ROOT / "tests" / "torch_poa_cases.py",
 ]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "genomicsbench_tpu")
 
@@ -103,6 +106,7 @@ def test_port_import_loads_no_jax():
             "import genomicsbench_tpu_torch.oracle.pairhmm\n"
             "import genomicsbench_tpu_torch.ops.abea, genomicsbench_tpu_torch.ops.eventalign\n"
             "import genomicsbench_tpu_torch.native, genomicsbench_tpu_torch.config\n"
+            "import genomicsbench_tpu_torch.ops.poa, genomicsbench_tpu_torch.oracle.poa\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'genomicsbench_tpu')]\n"
             "assert not bad, bad\n")
@@ -481,8 +485,8 @@ def test_abea_marshal_refuses_bad_reads():
 
 
 def test_native_build_replaces_a_temporary_file(tmp_path, monkeypatch):
-    """The host library is compiled into a temporary name beside its final
-    path and moved into place with os.replace."""
+    """Each source of the host library is compiled into a temporary name
+    beside its final path and moved into place with os.replace."""
     import os
 
     from genomicsbench_tpu_torch import native
@@ -492,7 +496,7 @@ def test_native_build_replaces_a_temporary_file(tmp_path, monkeypatch):
     real_run, real_replace = subprocess.run, os.replace
 
     def run(cmd, **kw):
-        calls.append(("cc", cmd[cmd.index("-o") + 1]))
+        calls.append(("cc", cmd[cmd.index("-o") + 1], cmd[-1]))
         return real_run(cmd, **kw)
 
     def replace(src, dst):
@@ -501,11 +505,169 @@ def test_native_build_replaces_a_temporary_file(tmp_path, monkeypatch):
 
     monkeypatch.setattr(native.subprocess, "run", run)
     monkeypatch.setattr(native.os, "replace", replace)
-    lib = native.build()
-    assert lib == native.library_path() and lib.exists()
-    assert [c[0] for c in calls] == ["cc", "replace"]
-    tmp = calls[0][1]
-    assert tmp != str(lib) and tmp.endswith(".tmp") and os.path.dirname(tmp) == str(lib.parent)
-    assert calls[1][1:] == (tmp, str(lib)) and not os.path.exists(tmp)
+    libs = native.build()
+    assert sorted(libs) == ["peaks", "poa"]
+    assert [c[0] for c in calls] == ["cc", "replace"] * 2
+    for k, (name, lib) in enumerate(libs.items()):
+        assert lib == native.library_path(name) and lib.exists()
+        cc, rep = calls[2 * k], calls[2 * k + 1]
+        tmp = cc[1]
+        assert cc[2] == str(native.SOURCES[name][0])
+        assert tmp != str(lib) and tmp.endswith(".tmp") and os.path.dirname(tmp) == str(lib.parent)
+        assert rep[1:] == (tmp, str(lib)) and not os.path.exists(tmp)
     calls.clear()
-    assert native.build() == lib and calls == []         # built once, then reused
+    assert native.build() == libs and calls == []        # built once, then reused
+
+
+def test_kernel_build_runs_once_under_threads(tmp_path, monkeypatch):
+    """Two threads that call _kernels.load() at once run one nvcc per source
+    (the module lock), each into a temporary name carrying the process and
+    the thread, and get the same entry points."""
+    import os
+    import threading
+    import time
+    import types
+
+    from genomicsbench_tpu_torch import _kernels
+
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_kernels, "_lib", None)
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: "nvcc")
+    builds = []
+
+    class FakeNvcc:
+        def __init__(self, cmd, **kw):
+            self.out = cmd[cmd.index("-o") + 1]
+            builds.append((cmd[-1], self.out))
+            self.returncode = 0
+
+        def communicate(self):
+            time.sleep(0.2)             # a build takes a while: both threads get here
+            pathlib.Path(self.out).write_bytes(b"lib")
+            return "ptxas info: 0 bytes spill stores, 0 bytes spill loads\n", None
+
+    def fake_cdll(path):
+        name = next(n for n in _kernels.SOURCES if _kernels.library_path(n) == pathlib.Path(path))
+        return types.SimpleNamespace(**{fn: (lambda *a: 0)
+                                        for fn in _kernels.SOURCES[name][1]})
+
+    monkeypatch.setattr(_kernels.subprocess, "Popen", FakeNvcc)
+    monkeypatch.setattr(_kernels.ctypes, "CDLL", fake_cdll)
+    start, got = threading.Barrier(2), []
+
+    def worker():
+        start.wait()
+        got.append(_kernels.load())
+
+    threads = [threading.Thread(target=worker) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(got) == 2 and got[0] is got[1]
+    assert sorted(src for src, _ in builds) == sorted(str(s) for s, _ in
+                                                      _kernels.SOURCES.values())
+    for _, tmp in builds:
+        assert tmp.endswith(".tmp") and f".{os.getpid()}." in tmp and not os.path.exists(tmp)
+    assert all(_kernels.library_path(n).exists() for n in _kernels.SOURCES)
+    assert {"gb_poa_fill", "gb_poa_backtrack", "gb_bsw_extend"} <= set(vars(got[0]))
+
+
+@pytest.mark.parametrize("entry", ["msa_consensus_batch", "align_batch", "cli"])
+def test_poa_entry_points_raise_without_card(no_card, entry, tmp_path):
+    windows = small_windows(2, 0)
+    path = tmp_path / "w.fa"
+    write_windows_fasta(path, windows)
+
+    def align(*dev):
+        g = poa.NativePoaGraph(poa.PoaParams(), cap=300)
+        g.add_alignment([], windows[0][0])
+        return poa.align_batch([g], [windows[0][1]], **({"device": dev[0]} if dev else {}))
+
+    run = {
+        "msa_consensus_batch": lambda *dev: poa.msa_consensus_batch(
+            windows, **({"device": dev[0]} if dev else {})),
+        "align_batch": align,
+        "cli": lambda *dev: torch_cli_main(["poa", "-s", str(path)]
+                                           + (["--device", dev[0]] if dev else [])),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run("cuda:0")
+    run("cpu")
+
+
+def _poa_planes(max_indeg=3, n=20, q=30, n_pad=256, q_pad=128):
+    rng = np.random.default_rng(4)
+    dags = [random_dag(rng, n, max_indeg, q) for _ in range(2)]
+    p_pad = poa._bucket(max(max(len(p) for p in d[1]) for d in dags), 2)
+    return list(dag_planes(dags, n_pad, p_pad, q_pad))
+
+
+@pytest.mark.parametrize("fault", ["q_pad", "p_pad", "n_pad", "mismatched", "dtype", "no_nodes",
+                                   "qlen", "pred_rank", "offsets", "codes", "fill_length",
+                                   "params"])
+def test_poa_wrappers_check_inputs(fault, monkeypatch):
+    """poa_fill and poa_backtrack refuse what the kernels do not take, on
+    the host, before they would build or launch anything: q_pad or p_pad of
+    2^13 or more and n_pad of 65,535 or more with ValueError, where the JAX
+    package asserts (ops/poa.py:279,566)."""
+    from genomicsbench_tpu_torch import _kernels
+
+    def no_launch():
+        raise AssertionError("reached the kernel")
+
+    monkeypatch.setattr(_kernels, "load", no_launch)
+    good = poa.upload_windows(*_poa_planes(), "cpu")
+    f = poa.poa_fill(good)
+    err, call = ValueError, None
+    if fault == "q_pad":
+        t = poa.upload_windows(*_poa_planes(q_pad=1 << 13), "cpu")
+    elif fault == "p_pad":
+        planes = _poa_planes()
+        planes[1] = np.full((2, 256, 1 << 13), 0xFFFF, np.uint16)
+        planes[1][:, :, 0] = planes[1][:, :, 0] * 0
+        t = poa.upload_windows(*planes, "cpu")
+    elif fault == "n_pad":
+        t = poa.upload_windows(*_poa_planes(n_pad=0xFFFF), "cpu")
+    elif fault == "mismatched":
+        planes = _poa_planes()
+        planes[1] = planes[1][:, :128]
+        call = lambda: poa.upload_windows(*planes, "cpu")     # noqa: E731
+    elif fault == "dtype":
+        t = poa.upload_windows(*_poa_planes(), "cpu")
+        t.n, err = t.n.long(), TypeError
+    elif fault == "no_nodes":
+        planes = _poa_planes()
+        planes[2][1] = 0
+        t = poa.upload_windows(*planes, "cpu")
+    elif fault == "qlen":
+        planes = _poa_planes()
+        planes[4][0] = 128
+        t = poa.upload_windows(*planes, "cpu")
+    elif fault == "pred_rank":
+        planes = _poa_planes()
+        planes[1][0, 3, 0] = 5                  # row 3 is rank 4
+        t = poa.upload_windows(*planes, "cpu")
+    elif fault == "offsets":
+        t = poa.upload_windows(*_poa_planes(), "cpu")
+        t.host["trace_off"] = t.host["trace_off"] + 1
+    elif fault == "codes":
+        t = poa.upload_windows(*_poa_planes(max_indeg=9), "cpu")
+        call = lambda: poa.poa_backtrack(t, poa.poa_fill(t), codes=True)   # noqa: E731
+    elif fault == "fill_length":
+        t = good
+        call = lambda: poa.poa_backtrack(                      # noqa: E731
+            t, poa.FillResult(f.score, f.best_rank, f.trace[:-1]))
+    else:
+        t, err = good, TypeError
+        call = lambda: poa.poa_fill(t, dict(match=2))           # noqa: E731
+    with pytest.raises(err):
+        if call is None:
+            poa.poa_fill(t)
+        else:
+            call()
+    path, plen = poa.poa_backtrack(good, f, codes=True)
+    assert path.dtype == torch.int32 and path.shape == (2, good.path_width(True))
+    assert plen.dtype == torch.int32 and (plen > 0).all()
