@@ -47,6 +47,10 @@ SOURCES = {
     "poa": (CSRC / "poa.cu",
             {"gb_poa_fill": [_P] * 7 + [_L] + [_I] * 11 + [_P] * 7,
              "gb_poa_backtrack": [_P] * 5 + [_L] + [_I] * 5 + [_P] * 3}),
+    "fmi": (CSRC / "fmi.cu",
+            {"gb_fmi_smem1": [_P, _P, _I] + [_P] * 4 + [_L] + [_I] * 10 + [_P] * 2,
+             "gb_fmi_seed3": [_P, _P, _I, _P, _L] + [_I] * 9 + [_P] * 2,
+             "gb_fmi_extend": [_P, _P, _I] + [_P] * 5 + [_L] + [_I] * 6 + [_P] * 2}),
 }
 
 _lock = threading.Lock()

@@ -8,7 +8,7 @@ format.
 
     python -m genomicsbench_tpu_torch <subcommand> [args]
 
-Subcommands: bsw, phmm, chain, poa, eventalign.
+Subcommands: fmi, bsw, phmm, chain, poa, eventalign.
 """
 
 from __future__ import annotations
@@ -19,6 +19,49 @@ import time
 import types
 
 import numpy as np
+
+from genomicsbench_tpu_torch import resolve_device
+
+
+def cmd_fmi(args):
+    """fmi ref.fa query.fastq batch_size minSeedLen n_threads (fmi.cpp:56).
+
+    Prints, with --print-output, each batch's SMEMs sorted as the
+    reference's sortSMEMs does (fmi.cpp:312-344): "rid:" headers and
+    "[m,n+1]" lines, byte for byte as the JAX package's CLI prints them;
+    then the timing line with totalSmem on stderr."""
+    from genomicsbench_tpu_torch.io.msa_fasta import encode_seq
+    from genomicsbench_tpu_torch.io.seqio import load_fastx_batch, read_fastx
+    from genomicsbench_tpu_torch.ops.fmi import FmiPipeline, build_fmd_index
+
+    resolve_device(args.device)
+    ref = encode_seq(read_fastx(args.ref, max_reads=1)[0][1].decode())
+    idx = build_fmd_index(ref)
+    batch = load_fastx_batch(args.query, max_reads=args.max_reads)
+    pipe = FmiPipeline(idx, min_seed_len=args.min_seed_len, device=args.device)
+    t0 = time.perf_counter()
+    total = 0
+    out = []
+    for s in range(0, batch.n, args.batch_size):
+        sl = slice(s, min(s + args.batch_size, batch.n))
+        p1, p2, p3, count = pipe.run(batch.codes[sl], batch.lengths[sl])
+        total += count
+        if args.print_output:
+            out.append((s, p1, p2, p3))
+    dt = time.perf_counter() - t0
+    if args.print_output:
+        lines, prev_rid = [], -1
+        for s0, *passes in out:
+            rows = sorted((s0 + int(r), int(m), int(n)) for smems in passes
+                          for r, m, n in zip(smems.rid, smems.m, smems.n))
+            for rid, m, n in rows:
+                if rid != prev_rid:
+                    lines += [f"{j}:" for j in range(prev_rid + 1, rid + 1)]
+                    prev_rid = rid
+                lines.append(f"[{m},{n + 1}]")
+        if lines:
+            sys.stdout.write("\n".join(lines) + "\n")
+    print(f"Consumed: {dt:.2f} sec, totalSmem: {total}", file=sys.stderr)
 
 
 def cmd_bsw(args):
@@ -134,7 +177,6 @@ def cmd_eventalign(args):
     from an .npz (one array per read name) paired with a FASTA/Q.  The TSV
     goes to stdout, byte for byte as the JAX package's CLI writes it, then
     the summary line on stderr."""
-    from genomicsbench_tpu_torch import resolve_device
     from genomicsbench_tpu_torch.config import load_abea_profile
     from genomicsbench_tpu_torch.io import encode_seq, load_signals, read_fastx
     from genomicsbench_tpu_torch.ops import abea
@@ -170,6 +212,19 @@ def cmd_eventalign(args):
 def build_parser():
     p = argparse.ArgumentParser(prog="gbench", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("fmi", help="FM-index SMEM seeding")
+    s.add_argument("ref")
+    s.add_argument("query")
+    s.add_argument("batch_size", type=int, nargs="?", default=512)
+    s.add_argument("min_seed_len", type=int, nargs="?", default=19)
+    s.add_argument("n_threads", type=int, nargs="?", default=1,
+                   help="accepted for run-cpu.sh parity (ignored)")
+    s.add_argument("--max-reads", type=int, default=None)
+    s.add_argument("--print-output", action="store_true")
+    s.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    s.set_defaults(fn=cmd_fmi)
 
     s = sub.add_parser("bsw", help="banded Smith-Waterman extension")
     s.add_argument("-pairs", required=True)

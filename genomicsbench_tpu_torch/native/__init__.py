@@ -1,9 +1,10 @@
 """The port's host library (C++), built with g++ and loaded with ctypes.
 
-Two sources, listed in `SOURCES` with their C entry points: `peaks.cpp`, the
-sequential peak state machine of event detection, and `poa.cpp`, the
+Three sources, listed in `SOURCES` with their C entry points: `peaks.cpp`,
+the sequential peak state machine of event detection; `poa.cpp`, the
 partial-order-alignment graph engine (fusion, topological export, path
-decoding, consensus).  At first use each source is compiled with `g++ -O2`
+decoding, consensus); and `sais.cpp`, the linear-time suffix array of the
+FM-index build.  At first use each source is compiled with `g++ -O2`
 into its own library under `build/genomicsbench_tpu_torch/` at the repo
 root, named with a hash of the source and the flags.  The build holds a
 module lock, writes a temporary file named by process and thread, and moves
@@ -43,6 +44,9 @@ SOURCES = {
         "gb_poa_export_packed": (_I64, [_P] * 10 + [_I64] * 3 + [_P] * 3),
         "gb_poa_decode_path": (None, [_P, _I64, _I32, _I32, _P, _I64, _P, _P, _P]),
         "gb_poa_consensus": (_I64, [_P] * 11 + [_I64, _P]),
+    }),
+    "sais": (HERE / "sais.cpp", {
+        "gb_sais": (_I64, [_P, _I64, _I32, _P]),
     }),
 }
 
@@ -117,3 +121,17 @@ def peak_detector(t1: np.ndarray, t2: np.ndarray, w1: int, w2: int,
     if n < 0:
         raise ValueError("peak buffer overflow")
     return out[:n]
+
+
+def suffix_array(codes: np.ndarray, alphabet: int = 5) -> np.ndarray:
+    """The suffix array (int32) of codes in [0, alphabet), by SA-IS; on tied
+    prefixes the shorter suffix sorts first.  A code at or above `alphabet`
+    is refused: SA-IS would index past its buckets."""
+    codes = np.ascontiguousarray(codes, np.uint8)
+    if len(codes) and int(codes.max()) >= alphabet:
+        raise ValueError(f"suffix_array: code {int(codes.max())} is outside [0, {alphabet})")
+    out = np.empty(len(codes), np.int32)
+    got = load().gb_sais(codes.ctypes.data, len(codes), alphabet, out.ctypes.data)
+    if got != len(codes):
+        raise ValueError(f"gb_sais failed ({got}) for {len(codes)} symbols")
+    return out

@@ -6,10 +6,13 @@
 * Every entry point runs on the card unless asked for the CPU, and raises
   when there is no card; it never falls back to the CPU on its own.
 * The wrappers of the kernels check what they are given before any launch.
+* The fmi index build refuses an ambiguous base (tests/test_torch_fmi.py);
+  the fmi wrappers refuse widths of 2^15 or more, index rows of 2^31 or
+  more, qrow outside the query and mismatched shapes with ValueError.
 * The configuration, the anchor calls and the phmm batches cross from the
   JAX package as plain dicts.
-* The host library (native/peaks.cpp and native/poa.cpp, one library per
-  source) is built into a temporary file and moved into place, so
+* The host library (native/peaks.cpp, native/poa.cpp and native/sais.cpp,
+  one library per source) is built into a temporary file and moved into place, so
   concurrent test workers never load half of it; the kernel build holds a
   lock, so two threads that load at once run one nvcc per source.
 * The kernel's launch configuration is a host function of the padded query
@@ -35,12 +38,13 @@ from genomicsbench_tpu_torch.config import BswParams, bsw_params_from_dict
 from genomicsbench_tpu_torch.io.anchors import anchor_calls_from_dicts, write_anchor_calls
 from genomicsbench_tpu_torch.io.pairs import PairBatch, write_pairs
 from genomicsbench_tpu_torch.io.phmm_text import PhmmBatch, PhmmRead, write_phmm_testfile
-from genomicsbench_tpu_torch.ops import abea, bsw, chain, eventalign, pairhmm, poa
+from genomicsbench_tpu_torch.ops import abea, bsw, chain, eventalign, fmi, pairhmm, poa
 
 from torch_abea_cases import _model as abea_model
 from torch_abea_cases import edge_cases as abea_edge_cases
 from torch_abea_cases import eventalign_reads_case
 from torch_chain_cases import edge_cases
+from torch_fmi_cases import edge_cases as fmi_edge_cases
 from torch_phmm_cases import edge_cases as phmm_edge_cases
 from torch_poa_cases import dag_planes, random_dag, small_windows, write_windows_fasta
 
@@ -54,6 +58,7 @@ PORT_FILES = sorted((ROOT / "genomicsbench_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_bsw_cases.py",
     ROOT / "tests" / "torch_chain_cases.py", ROOT / "tests" / "torch_phmm_cases.py",
     ROOT / "tests" / "torch_abea_cases.py", ROOT / "tests" / "torch_poa_cases.py",
+    ROOT / "tests" / "torch_fmi_cases.py",
 ]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "genomicsbench_tpu")
 
@@ -107,6 +112,7 @@ def test_port_import_loads_no_jax():
             "import genomicsbench_tpu_torch.ops.abea, genomicsbench_tpu_torch.ops.eventalign\n"
             "import genomicsbench_tpu_torch.native, genomicsbench_tpu_torch.config\n"
             "import genomicsbench_tpu_torch.ops.poa, genomicsbench_tpu_torch.oracle.poa\n"
+            "import genomicsbench_tpu_torch.ops.fmi, genomicsbench_tpu_torch.io.seqio\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'genomicsbench_tpu')]\n"
             "assert not bad, bad\n")
@@ -506,8 +512,8 @@ def test_native_build_replaces_a_temporary_file(tmp_path, monkeypatch):
     monkeypatch.setattr(native.subprocess, "run", run)
     monkeypatch.setattr(native.os, "replace", replace)
     libs = native.build()
-    assert sorted(libs) == ["peaks", "poa"]
-    assert [c[0] for c in calls] == ["cc", "replace"] * 2
+    assert sorted(libs) == ["peaks", "poa", "sais"]
+    assert [c[0] for c in calls] == ["cc", "replace"] * 3
     for k, (name, lib) in enumerate(libs.items()):
         assert lib == native.library_path(name) and lib.exists()
         cc, rep = calls[2 * k], calls[2 * k + 1]
@@ -671,3 +677,84 @@ def test_poa_wrappers_check_inputs(fault, monkeypatch):
     path, plen = poa.poa_backtrack(good, f, codes=True)
     assert path.dtype == torch.int32 and path.shape == (2, good.path_width(True))
     assert plen.dtype == torch.int32 and (plen > 0).all()
+
+
+@pytest.mark.parametrize("entry", ["pipeline", "tables", "cli"])
+def test_fmi_entry_points_raise_without_card(no_card, entry, tmp_path):
+    c = fmi_edge_cases()["short"]
+    idx = fmi.build_fmd_index(c["ref"])
+    (tmp_path / "ref.fa").write_text(">r\n" + "".join("ACGT"[b] for b in c["ref"]) + "\n")
+    (tmp_path / "q.fa").write_text(">q\n" + "".join("ACGT"[b] for b in c["ref"][:60]) + "\n")
+    run = {
+        "pipeline": lambda *dev: fmi.FmiPipeline(idx, **({"device": dev[0]} if dev else {}))
+        .run(c["query"], c["qlen"]),
+        "tables": lambda *dev: idx.device(*dev),
+        "cli": lambda *dev: torch_cli_main(["fmi", str(tmp_path / "ref.fa"), str(tmp_path / "q.fa")]
+                                           + (["--device", dev[0]] if dev else [])),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run("cuda:0")
+    run("cpu")
+
+
+@pytest.mark.parametrize("fault", ["width", "rows", "qrow_high", "qrow_low", "qlen_shape",
+                                   "item_shape", "dtype", "pivot_alone", "min_len"])
+def test_fmi_wrappers_check_inputs(fault, monkeypatch):
+    """fmi_smem1, fmi_seed3 and fmi_extend refuse what the kernels do not
+    take, on the host, before they would build or launch anything: a width
+    of 2^15 or more (JAX asserts, ops/fmi.py:1839,2363), index rows of 2^31
+    or more, qrow outside the query, mismatched shapes, wrong dtypes."""
+    from genomicsbench_tpu_torch import _kernels
+
+    def no_launch():
+        raise AssertionError("reached the kernel")
+
+    monkeypatch.setattr(_kernels, "load", no_launch)
+    c = fmi_edge_cases()["ambiguous"]
+    tab = fmi.build_fmd_index(c["ref"]).device("cpu")
+    q, ql = torch.from_numpy(c["query"]), torch.from_numpy(c["qlen"])
+    B, L = q.shape
+    items = [torch.zeros(3, dtype=torch.int32), torch.full((3,), 5, dtype=torch.int32),
+             torch.ones(3, dtype=torch.int32)]
+    lanes = [torch.zeros(4, dtype=torch.int32), torch.arange(4, dtype=torch.int32),
+             torch.ones(4, dtype=torch.int32), torch.full((4,), 99, dtype=torch.int32)]
+    err = ValueError
+    calls = []
+    if fault == "width":
+        wide = torch.zeros((2, 1 << 15), dtype=torch.uint8)
+        wl = torch.full((2,), 10, dtype=torch.int32)
+        calls = [lambda: fmi.fmi_smem1(tab, wide, wl, min_seed_len=19),
+                 lambda: fmi.fmi_seed3(tab, wide, wl, min_intv=20, min_len=20),
+                 lambda: fmi.fmi_extend(tab, wide, wl, *lanes)]
+    elif fault == "rows":
+        big = dataclasses.replace(tab, c_host=tab.c_host[:4] + (1 << 31,))
+        calls = [lambda: fmi.fmi_smem1(big, q, ql, min_seed_len=19),
+                 lambda: fmi.fmi_seed3(big, q, ql, min_intv=20, min_len=20),
+                 lambda: fmi.fmi_extend(big, q, ql, *lanes)]
+    elif fault in ("qrow_high", "qrow_low"):
+        bad = torch.tensor([0, B if fault == "qrow_high" else -1, 1], dtype=torch.int32)
+        calls = [lambda: fmi.fmi_smem1(tab, q, ql, bad, *items[1:], min_seed_len=19),
+                 lambda: fmi.fmi_extend(tab, q, ql, torch.cat([bad, bad[:1]]), *lanes[1:])]
+    elif fault == "qlen_shape":
+        calls = [lambda: fmi.fmi_smem1(tab, q, ql[:-1], min_seed_len=19),
+                 lambda: fmi.fmi_seed3(tab, q[0], ql, min_intv=20, min_len=20)]
+    elif fault == "item_shape":
+        calls = [lambda: fmi.fmi_smem1(tab, q, ql, items[0], items[1][:2], items[2],
+                                       min_seed_len=19),
+                 lambda: fmi.fmi_extend(tab, q, ql, lanes[0], lanes[1][:3], *lanes[2:])]
+    elif fault == "dtype":
+        err = TypeError
+        calls = [lambda: fmi.fmi_smem1(tab, q.long(), ql, min_seed_len=19),
+                 lambda: fmi.fmi_seed3(tab, q, ql.long(), min_intv=20, min_len=20),
+                 lambda: fmi.fmi_extend(tab, q, ql, lanes[0].long(), *lanes[1:])]
+    elif fault == "pivot_alone":
+        calls = [lambda: fmi.fmi_smem1(tab, q, ql, pivot=items[1], min_seed_len=19)]
+    else:
+        calls = [lambda: fmi.fmi_seed3(tab, q, ql, min_intv=20, min_len=0)]
+    for call in calls:
+        with pytest.raises(err):
+            call()
+    w = fmi.fmi_smem1(tab, q, ql, *items, min_seed_len=19)
+    assert w.slots.shape == (3, fmi.walk_caps(L)[1], 4) and w.buf.dtype == torch.int32
