@@ -51,6 +51,8 @@ SOURCES = {
             {"gb_fmi_smem1": [_P, _P, _I] + [_P] * 4 + [_L] + [_I] * 10 + [_P] * 2,
              "gb_fmi_seed3": [_P, _P, _I, _P, _L] + [_I] * 9 + [_P] * 2,
              "gb_fmi_extend": [_P, _P, _I] + [_P] * 5 + [_L] + [_I] * 6 + [_P] * 2}),
+    "meth": (CSRC / "meth.cu",
+             {"gb_meth_forward": [_P] * 9 + [_L, _I, _P, _P]}),
 }
 
 _lock = threading.Lock()

@@ -8,7 +8,10 @@ format.
 
     python -m genomicsbench_tpu_torch <subcommand> [args]
 
-Subcommands: fmi, bsw, phmm, chain, poa, eventalign.
+Subcommands: fmi, bsw, phmm, chain, poa, eventalign (event space, or
+reference coordinates with -b/-g, or event-space records with --sam),
+call-methylation (event space, or on the genome with -b/-g), and the
+host-only meth-freq, index and freq-merge.
 """
 
 from __future__ import annotations
@@ -171,42 +174,254 @@ def cmd_poa(args):
     print(f"Runtime: {dt:.2f} sec ({len(windows)} windows)", file=sys.stderr)
 
 
-def cmd_eventalign(args):
-    """f5c eventalign in event-space mode over raw-signal and read-sequence
-    inputs (run-gpu.sh:34,45; TSV format eventalign.c:1651-1941): signals
-    from an .npz (one array per read name) paired with a FASTA/Q.  The TSV
-    goes to stdout, byte for byte as the JAX package's CLI writes it, then
-    the summary line on stderr."""
-    from genomicsbench_tpu_torch.config import load_abea_profile
+def _load_reads(args):
+    """The names, 0..3-coded sequences and raw signals of the reads of
+    args.reads that args.signals holds, in the reads file's order."""
     from genomicsbench_tpu_torch.io import encode_seq, load_signals, read_fastx
-    from genomicsbench_tpu_torch.ops import abea
-    from genomicsbench_tpu_torch.ops.eventalign import eventalign_reads
 
-    if args.bam or args.genome or args.sam:
-        raise NotImplementedError(
-            "eventalign -b/-g and --sam (reference coordinates through ref_align and "
-            "BAM input) are not ported yet; run without them for event-space rows")
-    resolve_device(args.device)
-    if args.model:
-        model_mean, model_stdv = abea.load_model_tsv(args.model)
-    else:
-        model_mean, model_stdv = abea.synthetic_model(seed=0)
     sig = load_signals(args.signals)
-    seqs, raws = [], []
+    names, seqs, raws = [], [], []
     for name, seq in read_fastx(args.reads):
         if name in sig:
+            names.append(name)
             seqs.append(encode_seq(seq.decode()))
             raws.append(np.asarray(sig[name], np.float32))
+    return names, seqs, raws
+
+
+def _pore_model(path):
+    from genomicsbench_tpu_torch.ops import abea
+
+    return abea.load_model_tsv(path) if path else abea.synthetic_model(seed=0)
+
+
+def cmd_eventalign(args):
+    """f5c eventalign over raw-signal and read-sequence inputs
+    (run-gpu.sh:34,45; TSV format eventalign.c:1651-1941): signals from an
+    .npz (one array per read name) paired with a FASTA/Q.  Without -b/-g
+    the event-space TSV goes to stdout; with -b/-g the rows are realigned to
+    the genome and come out in BAM record order (reference coordinates), or
+    with --sam as event-space alignment records in a BAM container, byte
+    for byte as the JAX package's CLI writes them; then the summary lines
+    on stderr."""
+    from genomicsbench_tpu_torch.config import load_abea_profile
+    from genomicsbench_tpu_torch.ops.eventalign import TSV_HEADER, eventalign_reads
+    from genomicsbench_tpu_torch.ops.ref_align import (emit_ref_alignment_tsv,
+                                                        ref_rows_to_sam_record)
+
+    resolve_device(args.device)
+    model_mean, model_stdv = _pore_model(args.model)
+    names, seqs, raws = _load_reads(args)
     profile = load_abea_profile(args.profile) if args.profile else None
+    ref_mode = bool(args.bam and args.genome)
     t0 = time.perf_counter()
-    results = eventalign_reads(raws, seqs, model_mean, model_stdv, tsv_fp=sys.stdout,
+    results = eventalign_reads(raws, seqs, model_mean, model_stdv,
+                               tsv_fp=None if ref_mode else sys.stdout,
                                sample_rate=args.sample_rate, profile=profile,
-                               device=args.device)
+                               keep_aux=ref_mode, device=args.device)
+    if ref_mode:
+        # f5c's -b/-g shape: the events realigned to the genome segments of
+        # each BAM record (align_read_to_ref); read_index = the record's
+        # index in the BAM
+        sam_records = [] if args.sam else None
+        if not args.sam:
+            sys.stdout.write(TSV_HEADER + "\n")
+        n_rows = 0
+        for ridx, rec, contig, _, rows, r in _iter_ref_alignments(
+                args.bam, args.genome, names, seqs, results, model_mean, model_stdv):
+            if sam_records is not None:
+                sam_rec = ref_rows_to_sam_record(rows, rec.name, rec.ref_id, rec.mapq)
+                if sam_rec is not None:
+                    sam_records.append(sam_rec)
+            else:
+                emit_ref_alignment_tsv(sys.stdout, rows, r.events[0], r.events[1], r.events[2],
+                                       r.scalings, model_mean, model_stdv, read_index=ridx,
+                                       ref_name=contig, sample_rate=args.sample_rate)
+            n_rows += len(rows)
+        if sam_records is not None:
+            from genomicsbench_tpu_torch.io.bam import BamFile, write_bam
+
+            src = _open_bam(args.bam)
+            write_bam(args.sam, BamFile(header_text=src.header_text, ref_names=src.ref_names,
+                                        ref_lens=src.ref_lens, records=sam_records))
+            print(f"[eventalign --sam] {len(sam_records)} event-space "
+                  f"records -> {args.sam}", file=sys.stderr)
+        print(f"[eventalign -b/-g] {n_rows} reference-coordinate rows", file=sys.stderr)
     dt = time.perf_counter() - t0
     n_ok = sum(1 for r in results if r.flag == 0)
     entries = sum(len(r.alignment.event_idx) for r in results if r.alignment)
     print(f"[eventalign] {n_ok}/{len(results)} reads aligned, total entries: {entries}; "
           f"Data processing time: {dt:.3f} sec", file=sys.stderr)
+
+
+def _open_bam(path):
+    """The whole BAM, record by record.  A .bai beside it changes nothing:
+    the JAX package's indexed reader (IndexedBam) gives the same records in
+    the same order."""
+    from genomicsbench_tpu_torch.io.bam import read_bam
+
+    return read_bam(path)
+
+
+_CIGAR_CODE = {"M": 0, "I": 1, "D": 2, "N": 3, "S": 4, "H": 5, "P": 6, "=": 7, "X": 8}
+
+
+def _iter_ref_alignments(bam_path, genome_path, names, seqs, results, model_mean,
+                         model_stdv):
+    """The -b/-g projection (JAX cli.py:365-395): walk the BAM records in
+    order, realign each passing read's events onto its reference span, and
+    yield (record index, record, contig, reference slice, rows,
+    ReadResult)."""
+    from genomicsbench_tpu_torch.io import read_fastx
+    from genomicsbench_tpu_torch.ops.ref_align import align_read_to_ref
+
+    genome = {n: s.decode().upper() for n, s in read_fastx(genome_path)}
+    bam = _open_bam(bam_path)
+    by_name = {n: (i, r) for i, (n, r) in enumerate(zip(names, results))}
+    for ridx, rec in enumerate(bam.records):
+        got = by_name.get(rec.name)
+        if (got is None or got[1].flag != 0 or rec.is_unmapped
+                or rec.is_secondary or rec.is_supplementary):
+            continue
+        i, r = got
+        contig = bam.ref_names[rec.ref_id]
+        ops = [_CIGAR_CODE[c] for c, _ in rec.cigar]
+        lens = [ln for _, ln in rec.cigar]
+        consumed = sum(ln for (c, ln) in rec.cigar if c in "MDN=X")
+        ref_slice = genome[contig][rec.pos:rec.pos + consumed]
+        rows = align_read_to_ref(
+            ref_slice, rec.pos, ops, lens, rec.pos, rec.is_reverse,
+            len(seqs[i]), r.b2e, r.events[0], r.scalings,
+            model_mean, model_stdv, r.events_per_base)
+        yield ridx, rec, contig, ref_slice, rows, r
+
+
+METH_HEADER = ("chromosome\tstart\tend\tread_name\tlog_lik_ratio\t"
+               "log_lik_methylated\tlog_lik_unmethylated\tnum_cpgs\tsequence")
+
+
+def cmd_call_methylation(args):
+    """f5c call-methylation (main.c:49-117 mode 0): eventalign every read,
+    then score its CpG groups with the profile HMM, all reads' groups in
+    one batch, and print per-site log-likelihood ratios as the JAX
+    package's CLI does (JAX cli.py:486-567).  With -b/-g the events are
+    realigned to the genome first and the groups scored on the reference,
+    in genomic coordinates."""
+    from genomicsbench_tpu_torch.ops import methylation as meth
+    from genomicsbench_tpu_torch.ops.eventalign import eventalign_reads
+
+    resolve_device(args.device)
+    model_mean, model_stdv = _pore_model(args.model)
+    if args.cpg_model:
+        from genomicsbench_tpu_torch.ops.abea import load_model_tsv
+
+        cpg_mean, cpg_stdv = load_model_tsv(args.cpg_model)
+    else:
+        cpg_mean, cpg_stdv = meth.synthetic_cpg_model(seed=0)
+    names, seqs, raws = _load_reads(args)
+    ref_mode = bool(args.bam and args.genome)
+    t0 = time.perf_counter()
+    # every read's results keep their events: event space scores the read's
+    # own detected events (the JAX CLI detects them again, cli.py:563-566)
+    results = eventalign_reads(raws, seqs, model_mean, model_stdv, keep_aux=True,
+                               device=args.device)
+    print(METH_HEADER)
+    if ref_mode:
+        keys, reads = [], []
+        for _, rec, contig, ref_slice, rows, r in _iter_ref_alignments(
+                args.bam, args.genome, names, seqs, results, model_mean, model_stdv):
+            if not rows:
+                continue
+            keys.append((contig, rec.name))
+            reads.append(dict(
+                ref_seq=ref_slice, ref_start_pos=rec.pos,
+                aln_ref_pos=np.array([row.ref_position for row in rows], np.int64),
+                aln_event_idx=np.array([row.event_idx for row in rows], np.int64),
+                event_means=r.events[0], scalings3=r.scalings,
+                events_per_base=r.events_per_base, rc=rec.is_reverse))
+    else:
+        idx, reads = meth.event_space_reads(results, seqs)
+        keys = [("read", names[b]) for b in idx]
+    site_maps = meth.call_methylation_batch(reads, cpg_mean, cpg_stdv, device=args.device)
+    lines = meth_lines(keys, site_maps)
+    sys.stdout.write("".join(lines))
+    print(f"[call-methylation] {len(lines)} site groups from {len(site_maps)} reads in "
+          f"{time.perf_counter() - t0:.2f} sec", file=sys.stderr)
+
+
+def meth_lines(keys, site_maps) -> list[str]:
+    """The call-methylation rows of each read's sites, in position order:
+    keys[i] = (chromosome, read name) of site_maps[i]."""
+    return [f"{contig}\t{ss.start_position}\t{ss.end_position}\t{name}\t"
+            f"{ss.ll_ratio:.2f}\t{ss.ll_methylated:.2f}\t"
+            f"{ss.ll_unmethylated:.2f}\t{ss.n_cpg}\t{ss.sequence}\n"
+            for (contig, name), sites in zip(keys, site_maps)
+            for _, ss in sorted(sites.items())]
+
+
+FREQ_HEADER = ("start\tend\tnum_cpgs_in_group\tcalled_sites\t"
+               "called_sites_methylated\tmethylated_frequency\tgroup_sequence")
+
+
+def cmd_meth_freq(args):
+    """f5c meth-freq (main.c:53): aggregate a call-methylation TSV into
+    per-site methylation frequencies (JAX cli.py:570-594)."""
+    from genomicsbench_tpu_torch.ops.methylation import ScoredSite, methylation_frequency
+
+    maps = []
+    with open(args.input) as f:
+        f.readline()
+        for line in f:
+            t = line.rstrip("\n").split("\t")
+            if len(t) < 9:
+                continue
+            ss = ScoredSite(int(t[1]), int(t[2]), int(t[7]), t[8], float(t[6]), float(t[5]))
+            maps.append({ss.start_position: ss})
+    out = methylation_frequency(maps, call_threshold=args.call_threshold)
+    print(FREQ_HEADER)
+    for rec in out:
+        print(f"{rec['start']}\t{rec['end']}\t{rec['n_cpg']}\t"
+              f"{rec['called_sites']}\t{rec['called_sites_methylated']}\t"
+              f"{rec['methylated_frequency']:.3f}\t{rec['sequence']}")
+
+
+def cmd_index(args):
+    """f5c index (main.c:49-117): write the readdb, readname -> signal
+    source, of the reads in args.reads that args.signals holds (JAX
+    cli.py:597-613)."""
+    import os
+
+    from genomicsbench_tpu_torch.io import load_signals, read_fastx
+
+    sig = load_signals(args.signals)
+    n = 0
+    with open(args.reads + ".index.readdb", "w") as out:
+        for name, _ in read_fastx(args.reads):
+            if name in sig:
+                out.write(f"{name}\t{os.path.abspath(args.signals)}\n")
+                n += 1
+    print(f"[index] {n} reads mapped", file=sys.stderr)
+
+
+def cmd_freq_merge(args):
+    """f5c freq-merge (main.c:54): merge meth-freq TSVs by site, summing the
+    called and methylated counts and recomputing the frequencies (JAX
+    cli.py:616-635)."""
+    agg = {}
+    for path in args.inputs:
+        with open(path) as f:
+            f.readline()
+            for line in f:
+                t = line.rstrip("\n").split("\t")
+                if len(t) < 7:
+                    continue
+                rec = agg.setdefault((int(t[0]), int(t[1])), [int(t[2]), 0, 0, t[6]])
+                rec[1] += int(t[3])
+                rec[2] += int(t[4])
+    print(FREQ_HEADER)
+    for (start, end), (ncpg, called, meth, seq) in sorted(agg.items()):
+        freq = meth / called if called else 0.0
+        print(f"{start}\t{end}\t{ncpg}\t{called}\t{meth}\t{freq:.3f}\t{seq}")
 
 
 def build_parser():
@@ -275,12 +490,16 @@ def build_parser():
     s.add_argument("--signals", required=True, help=".npz of raw signals")
     s.add_argument("-r", "--reads", required=True,
                    help="FASTA/Q of read sequences")
-    s.add_argument("-b", "--bam", help="alignments (with -g; not ported yet)")
-    s.add_argument("-g", "--genome", help="reference FASTA (with -b; not ported yet)")
+    s.add_argument("-b", "--bam",
+                   help="alignments; with -g, emit REFERENCE-coordinate "
+                        "rows (f5c's -b/-g mode, run-gpu.sh:45)")
+    s.add_argument("-g", "--genome", help="reference FASTA (with -b)")
     s.add_argument("-B", "--batch-bases", default=None,
                    help="accepted for f5c parity (use --profile for "
                         "batch control)")
-    s.add_argument("--sam", metavar="OUT_BAM", help="with -b/-g (not ported yet)")
+    s.add_argument("--sam", metavar="OUT_BAM",
+                   help="with -b/-g: write event-space alignment records "
+                        "(f5c --sam; BAM container) instead of TSV rows")
     s.add_argument("--model", help="pore model TSV (else synthetic)")
     s.add_argument("--sample-rate", type=float, default=4000.0)
     s.add_argument("--profile",
@@ -290,6 +509,33 @@ def build_parser():
     s.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     s.set_defaults(fn=cmd_eventalign)
+
+    s = sub.add_parser("call-methylation", help="CpG methylation calling")
+    s.add_argument("--signals", required=True)
+    s.add_argument("-r", "--reads", required=True)
+    s.add_argument("-b", "--bam",
+                   help="with -g: score CpGs on the GENOME via the "
+                        "reference-coordinate realignment (f5c meth flow)")
+    s.add_argument("-g", "--genome")
+    s.add_argument("--model")
+    s.add_argument("--cpg-model")
+    s.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    s.set_defaults(fn=cmd_call_methylation)
+
+    s = sub.add_parser("meth-freq", help="methylation frequency aggregation")
+    s.add_argument("-i", "--input", required=True)
+    s.add_argument("-c", "--call-threshold", type=float, default=2.5)
+    s.set_defaults(fn=cmd_meth_freq)
+
+    s = sub.add_parser("index", help="readname -> signal source map (f5c index)")
+    s.add_argument("--reads", required=True)
+    s.add_argument("--signals", required=True)
+    s.set_defaults(fn=cmd_index)
+
+    s = sub.add_parser("freq-merge", help="merge meth-freq outputs")
+    s.add_argument("inputs", nargs="+")
+    s.set_defaults(fn=cmd_freq_merge)
     return p
 
 

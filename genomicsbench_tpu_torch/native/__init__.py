@@ -1,12 +1,15 @@
 """The port's host library (C++), built with g++ and loaded with ctypes.
 
-Three sources, listed in `SOURCES` with their C entry points: `peaks.cpp`,
+Four sources, listed in `SOURCES` with their C entry points: `peaks.cpp`,
 the sequential peak state machine of event detection; `poa.cpp`, the
 partial-order-alignment graph engine (fusion, topological export, path
-decoding, consensus); and `sais.cpp`, the linear-time suffix array of the
-FM-index build.  At first use each source is compiled with `g++ -O2`
-into its own library under `build/genomicsbench_tpu_torch/` at the repo
-root, named with a hash of the source and the flags.  The build holds a
+decoding, consensus); `sais.cpp`, the linear-time suffix array of the
+FM-index build; and `psr9.cpp`, the PSR9 profile-HMM Viterbi of
+eventalign's reference-coordinate realignment.  At first use each source is
+compiled with `g++ -O2 -ffp-contract=off` (no multiply-add contracted into
+an FMA, so every float operation rounds as written) into its own library
+under `build/genomicsbench_tpu_torch/` at the repo root, named with a hash
+of the source and the flags.  The build holds a
 module lock, writes a temporary file named by process and thread, and moves
 it into place with `os.replace`, so a process that loads the library
 concurrently sees all of it or nothing.  There is no Python fallback:
@@ -29,7 +32,7 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 BUILD_DIR = HERE.parent.parent / "build" / "genomicsbench_tpu_torch"
-CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+CXX_FLAGS = ("-O2", "-ffp-contract=off", "-shared", "-fPIC", "-std=c++17")
 
 _P, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_float
 # Each source's C entry points: (return type, argument types).  Every array
@@ -47,6 +50,11 @@ SOURCES = {
     }),
     "sais": (HERE / "sais.cpp", {
         "gb_sais": (_I64, [_P, _I64, _I32, _P]),
+    }),
+    "psr9": (HERE / "psr9.cpp", {
+        "gb_psr9_viterbi": (_I64, [ctypes.c_char_p, ctypes.c_char_p, _I64, _P, _I64,
+                                   _F32, _F32, _F32, _P, _P, ctypes.c_double]
+                            + [_I64] * 5 + [_P, _P, _P, _I64]),
     }),
 }
 
@@ -135,3 +143,31 @@ def suffix_array(codes: np.ndarray, alphabet: int = 5) -> np.ndarray:
     if got != len(codes):
         raise ValueError(f"gb_sais failed ({got}) for {len(codes)} symbols")
     return out
+
+
+def psr9_viterbi(fwd_seq: bytes, rc_seq: bytes, ev_mean, scale, shift, var,
+                 model_mean, model_stdv, events_per_base,
+                 e_start: int, e_end: int, event_stride: int, rc: bool,
+                 k: int = 6):
+    """One PSR9 profile-HMM Viterbi segment alignment (gb_psr9_viterbi,
+    the inner kernel of f5c eventalign's align_read_to_ref).  Returns
+    (event_idx, kmer_idx, state_char) int32/int32/uint8 arrays in forward
+    order."""
+    lib = load()
+    ev_mean = np.ascontiguousarray(ev_mean, np.float32)
+    mm = np.ascontiguousarray(model_mean, np.float32)
+    ms = np.ascontiguousarray(model_stdv, np.float32)
+    n_events = abs(int(e_end) - int(e_start)) + 1
+    n_kmers = max(len(fwd_seq) - k + 1, 0)
+    cap = (n_events + n_kmers) * 2 + 16
+    out_e = np.empty(cap, np.int32)
+    out_k = np.empty(cap, np.int32)
+    out_s = np.empty(cap, np.uint8)
+    n = lib.gb_psr9_viterbi(
+        fwd_seq, rc_seq, len(fwd_seq), ev_mean.ctypes.data, len(ev_mean),
+        float(scale), float(shift), float(var), mm.ctypes.data, ms.ctypes.data,
+        float(events_per_base), int(e_start), int(e_end), int(event_stride), int(bool(rc)),
+        int(k), out_e.ctypes.data, out_k.ctypes.data, out_s.ctypes.data, cap)
+    if n < 0:
+        raise RuntimeError("psr9_viterbi: output capacity exceeded")
+    return out_e[:n].copy(), out_k[:n].copy(), out_s[:n].copy()

@@ -24,9 +24,11 @@ mode (f5c eventalign without -b/-g):
   recalibrate -> QC -> TSV rows), with an optional batching profile.
 
 These stages are O(n_events) per read and stay on the host in numpy, with
-the reference's float/double mixing.  The JAX package's `keep_aux` (the
-inputs of its reference-coordinate realignment) and `eventalign_pipeline`
-(its load/process/output overlap) are not ported yet.
+the reference's float/double mixing.  `keep_aux` keeps, for each passing
+read, the inputs of the reference-coordinate realignment
+(ops/ref_align.py) and of call-methylation: its base-to-event map and its
+events.  The JAX package's `eventalign_pipeline` (its load/process/output
+overlap) is not ported yet.
 """
 
 from __future__ import annotations
@@ -215,10 +217,13 @@ class ReadResult:
     scalings: tuple  # (scale, shift, var) after recalibration
     events_per_base: float
     alignment: EventAlignment | None
+    # populated only with eventalign_reads(keep_aux=True), for passing reads
+    b2e: object = None           # (n_kmers, 2) base-to-event map
+    events: object = None        # (mean, stdv, length) float32 arrays
 
 
 def _eventalign_batch(raw_signals, sequences, model_mean, model_stdv, tsv_fp,
-                      sample_rate, read_indices, device):
+                      sample_rate, read_indices, device, keep_aux=False):
     """One device batch of process_db: detect, scale, align, then per read
     postalign, recalibrate, QC and the TSV rows of the passing reads."""
     events = [abea_ops.detect_events(r) for r in raw_signals]
@@ -233,7 +238,7 @@ def _eventalign_batch(raw_signals, sequences, model_mean, model_stdv, tsv_fp,
             out.append(ReadResult(FAILED_ALIGNMENT, (0, 0, 1.0), 0.0, None))
             continue
         ranks = kmer_ranks(np.asarray(seq))
-        aln, _, epb = postalign(res.pairs[b], len(seq) - KMER + 1, ranks)
+        aln, b2e, epb = postalign(res.pairs[b], len(seq) - KMER + 1, ranks)
         ok, scale, shift, var = recalibrate(events[b][2], aln, ranks, model_mean, model_stdv)
         sc3 = (float(scale), float(shift), float(var))
         if not ok or var > MIN_CALIBRATION_VAR:
@@ -246,18 +251,21 @@ def _eventalign_batch(raw_signals, sequences, model_mean, model_stdv, tsv_fp,
             emit_eventalign_tsv(tsv_fp, aln, seq, events[b][2], events[b][3], events[b][1],
                                 (scale, shift, var), model_mean, model_stdv,
                                 read_index=read_indices[b], sample_rate=sample_rate)
-        out.append(ReadResult(0, sc3, epb, aln))
+        aux = dict(b2e=b2e, events=(events[b][2], events[b][3], events[b][1])) if keep_aux else {}
+        out.append(ReadResult(0, sc3, epb, aln, **aux))
     return out
 
 
 def eventalign_reads(raw_signals, sequences, model_mean, model_stdv, tsv_fp=None,
-                     sample_rate=4000.0, profile=None, device="cuda"):
+                     sample_rate=4000.0, profile=None, keep_aux=False, device="cuda"):
     """Per-batch process_db (f5c.c:1497): event detection -> MoM scaling
     -> ABEA on the device -> postalign -> recalibrate -> QC -> TSV.
 
     raw_signals: list of f32 raw-signal arrays; sequences: list of 0..3
     coded read sequences.  Returns list[ReadResult]; writes the TSV header
-    and the rows of the passing reads if tsv_fp is given.
+    and the rows of the passing reads if tsv_fp is given.  With keep_aux,
+    each passing read's result also holds its base-to-event map and its
+    events (mean, stdv, length).
 
     Without a `profile` all reads go to the device as one batch.  With a
     profile (config.AbeaRunProfile, the f5c --profile analog), reads go in
@@ -287,7 +295,8 @@ def eventalign_reads(raw_signals, sequences, model_mean, model_stdv, tsv_fp=None
     results: list = [None] * len(sequences)
     for idx in batches:
         sub = _eventalign_batch([raw_signals[i] for i in idx], [sequences[i] for i in idx],
-                                model_mean, model_stdv, tsv_fp, sample_rate, idx, dev)
+                                model_mean, model_stdv, tsv_fp, sample_rate, idx, dev,
+                                keep_aux)
         for i, r in zip(idx, sub):
             results[i] = r
     return results

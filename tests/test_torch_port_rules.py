@@ -11,8 +11,12 @@
   more, qrow outside the query and mismatched shapes with ValueError.
 * The configuration, the anchor calls and the phmm batches cross from the
   JAX package as plain dicts.
-* The host library (native/peaks.cpp, native/poa.cpp and native/sais.cpp,
-  one library per source) is built into a temporary file and moved into place, so
+* The methylation wrapper refuses ranks outside 0..15624, instances of no
+  k-mer or more than 256, events and reads outside the uploaded tables, a
+  short flank table and unknown flags, with ValueError, before any launch.
+* The host library (native/peaks.cpp, native/poa.cpp, native/sais.cpp and
+  native/psr9.cpp, one library per source) is built into a temporary file
+  and moved into place, so
   concurrent test workers never load half of it; the kernel build holds a
   lock, so two threads that load at once run one nvcc per source.
 * The kernel's launch configuration is a host function of the padded query
@@ -39,12 +43,14 @@ from genomicsbench_tpu_torch.io.anchors import anchor_calls_from_dicts, write_an
 from genomicsbench_tpu_torch.io.pairs import PairBatch, write_pairs
 from genomicsbench_tpu_torch.io.phmm_text import PhmmBatch, PhmmRead, write_phmm_testfile
 from genomicsbench_tpu_torch.ops import abea, bsw, chain, eventalign, fmi, pairhmm, poa
+from genomicsbench_tpu_torch.ops import methylation as meth
 
 from torch_abea_cases import _model as abea_model
 from torch_abea_cases import edge_cases as abea_edge_cases
 from torch_abea_cases import eventalign_reads_case
 from torch_chain_cases import edge_cases
 from torch_fmi_cases import edge_cases as fmi_edge_cases
+from torch_meth_cases import edge_instances, ref_mode_case, write_ref_mode_files
 from torch_phmm_cases import edge_cases as phmm_edge_cases
 from torch_poa_cases import dag_planes, random_dag, small_windows, write_windows_fasta
 
@@ -58,7 +64,7 @@ PORT_FILES = sorted((ROOT / "genomicsbench_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_bsw_cases.py",
     ROOT / "tests" / "torch_chain_cases.py", ROOT / "tests" / "torch_phmm_cases.py",
     ROOT / "tests" / "torch_abea_cases.py", ROOT / "tests" / "torch_poa_cases.py",
-    ROOT / "tests" / "torch_fmi_cases.py",
+    ROOT / "tests" / "torch_fmi_cases.py", ROOT / "tests" / "torch_meth_cases.py",
 ]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "genomicsbench_tpu")
 
@@ -113,6 +119,8 @@ def test_port_import_loads_no_jax():
             "import genomicsbench_tpu_torch.native, genomicsbench_tpu_torch.config\n"
             "import genomicsbench_tpu_torch.ops.poa, genomicsbench_tpu_torch.oracle.poa\n"
             "import genomicsbench_tpu_torch.ops.fmi, genomicsbench_tpu_torch.io.seqio\n"
+            "import genomicsbench_tpu_torch.ops.methylation, genomicsbench_tpu_torch.io.bam\n"
+            "import genomicsbench_tpu_torch.ops.ref_align\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'genomicsbench_tpu')]\n"
             "assert not bad, bad\n")
@@ -512,8 +520,8 @@ def test_native_build_replaces_a_temporary_file(tmp_path, monkeypatch):
     monkeypatch.setattr(native.subprocess, "run", run)
     monkeypatch.setattr(native.os, "replace", replace)
     libs = native.build()
-    assert sorted(libs) == ["peaks", "poa", "sais"]
-    assert [c[0] for c in calls] == ["cc", "replace"] * 3
+    assert sorted(libs) == ["peaks", "poa", "psr9", "sais"]
+    assert [c[0] for c in calls] == ["cc", "replace"] * 4
     for k, (name, lib) in enumerate(libs.items()):
         assert lib == native.library_path(name) and lib.exists()
         cc, rep = calls[2 * k], calls[2 * k + 1]
@@ -758,3 +766,102 @@ def test_fmi_wrappers_check_inputs(fault, monkeypatch):
             call()
     w = fmi.fmi_smem1(tab, q, ql, *items, min_seed_len=19)
     assert w.slots.shape == (3, fmi.walk_caps(L)[1], 4) and w.buf.dtype == torch.int32
+
+
+@pytest.mark.parametrize("entry", ["call_methylation_batch", "call_methylation_for_read",
+                                   "profile_hmm_score_batch", "upload_reads", "cli",
+                                   "eventalign_cli_ref_mode"])
+def test_meth_entry_points_raise_without_card(no_card, entry, tmp_path):
+    cpg = meth.synthetic_cpg_model()
+    inst = edge_instances(cpg[0])["single"]
+    rng = np.random.default_rng(0)
+    ref = "".join(rng.choice(list("ACT"), 25)) + "CG" + "".join(rng.choice(list("ACT"), 25))
+    rd = dict(ref_seq=ref, ref_start_pos=0, aln_ref_pos=np.arange(48),
+              aln_event_idx=np.arange(48), event_means=rng.normal(90, 5, 48).astype(np.float32),
+              scalings3=(1.0, 0.0, 1.0), events_per_base=1.1, rc=False)
+    case = ref_mode_case(2, seed=1, genome_len=3000, lo=200, hi=300)
+    paths = write_ref_mode_files(str(tmp_path), case, __import__(
+        "genomicsbench_tpu_torch.io.bam", fromlist=["bam"]))
+    files = ["--signals", paths["signals"], "-r", paths["reads"]]
+    ref_mode = ["-b", paths["bam"], "-g", paths["genome"]]
+    dev_kw = lambda dev: {"device": dev[0]} if dev else {}
+    dev_arg = lambda dev: ["--device", dev[0]] if dev else []
+    run = {
+        "call_methylation_batch": lambda *dev: meth.call_methylation_batch([rd], *cpg,
+                                                                          **dev_kw(dev)),
+        "call_methylation_for_read": lambda *dev: meth.call_methylation_for_read(
+            *(rd[k] for k in ("ref_seq", "ref_start_pos", "aln_ref_pos", "aln_event_idx",
+                              "event_means", "scalings3")), *cpg, 1.1, **dev_kw(dev)),
+        "profile_hmm_score_batch": lambda *dev: meth.profile_hmm_score_batch(inst, *cpg,
+                                                                             **dev_kw(dev)),
+        "upload_reads": lambda *dev: meth.upload_reads([rd], *cpg, *dev),
+        "cli": lambda *dev: torch_cli_main(["call-methylation", *files, *ref_mode]
+                                           + dev_arg(dev)),
+        "eventalign_cli_ref_mode": lambda *dev: torch_cli_main(["eventalign", *files, *ref_mode]
+                                                               + dev_arg(dev)),
+    }[entry]
+    if entry != "upload_reads":
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run("cuda:0")
+    run("cpu")
+
+
+def _meth_tables():
+    cpg = meth.synthetic_cpg_model()
+    insts = edge_instances(cpg[0])["k_range"][:4]
+    return meth.upload_profile_instances(insts, *cpg, "cpu")
+
+
+@pytest.mark.parametrize("fault", ["rank_high", "rank_upload", "no_kmer", "too_many_kmers",
+                                   "events", "read", "flank", "flags", "dtype", "model_shape"])
+def test_meth_wrapper_checks_inputs(fault, monkeypatch):
+    """meth_forward refuses what the kernel does not take, on the host,
+    before it would build or launch anything."""
+    from genomicsbench_tpu_torch import _kernels
+
+    def no_launch():
+        raise AssertionError("reached the kernel")
+
+    monkeypatch.setattr(_kernels, "load", no_launch)
+    t = _meth_tables()
+    h = t.host
+    flags, err = 3, ValueError
+    if fault == "rank_high":
+        h["rank_range"] = (0, meth.NUM_KMER_METH)
+    elif fault == "rank_upload":
+        with pytest.raises(ValueError, match="0..15624"):
+            meth.upload_instances(np.array([15625]), [0, 1], [0], [0], np.zeros(1, np.int32),
+                                  np.ones(1, np.float32), meth.read_params([[1, 0, 1]], [1.5]),
+                                  *meth.synthetic_cpg_model(), "cpu")
+        return
+    elif fault == "no_kmer":
+        h["rank_off"] = h["rank_off"].copy()
+        h["rank_off"][1] = 0
+    elif fault == "too_many_kmers":
+        t = meth.upload_instances(np.zeros(257, np.int64), [0, 257], [0], [9],
+                                  np.zeros(1, np.int32), np.ones(10, np.float32),
+                                  meth.read_params([[1, 0, 1]], [1.5]),
+                                  *meth.synthetic_cpg_model(), "cpu")
+        with pytest.raises(ValueError, match="at most 256"):
+            meth.meth_forward(t)
+        return
+    elif fault == "events":
+        h["ev_last"] = h["ev_last"].copy()
+        h["ev_last"][2] = t.events.numel()
+    elif fault == "read":
+        h["read"] = np.array([0, 1, 4, 0], np.int32)
+    elif fault == "flank":
+        t.flank = t.flank[:3].clone()
+    elif fault == "flags":
+        flags = 4
+    elif fault == "dtype":
+        t.ranks, err = t.ranks.int(), TypeError
+    else:
+        t.model = t.model[:, :100].contiguous()
+    with pytest.raises(err):
+        meth.meth_forward(t, flags)
+    good = _meth_tables()
+    out = meth.meth_forward(good)
+    assert out.dtype == torch.float32 and out.shape == (4,) and torch.isfinite(out).all()
