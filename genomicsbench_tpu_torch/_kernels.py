@@ -53,6 +53,12 @@ SOURCES = {
              "gb_fmi_extend": [_P, _P, _I] + [_P] * 5 + [_L] + [_I] * 6 + [_P] * 2}),
     "meth": (CSRC / "meth.cu",
              {"gb_meth_forward": [_P] * 9 + [_L, _I, _P, _P]}),
+    "kmer": (CSRC / "kmer.cu",
+             {"gb_kmer_canonical": [_P, _P, _L, _L, _I, _I, _P, _P],
+              "gb_kmer_runs": [_P, _L, _P, _P],
+              "gb_kmer_freqs": [_P, _P, _L, _P, _P, _P],
+              "gb_kmer_minimizers": [_P, _P, _L, _L, _I, _I] + [_P] * 5,
+              "gb_kmer_sites": [_P] * 4 + [_L, _L, _I] + [_P] * 4}),
 }
 
 _lock = threading.Lock()

@@ -10,8 +10,8 @@ format.
 
 Subcommands: fmi, bsw, phmm, chain, poa, eventalign (event space, or
 reference coordinates with -b/-g, or event-space records with --sam),
-call-methylation (event space, or on the genome with -b/-g), and the
-host-only meth-freq, index and freq-merge.
+call-methylation (event space, or on the genome with -b/-g), kmer-cnt, and
+the host-only meth-freq, index and freq-merge.
 """
 
 from __future__ import annotations
@@ -65,6 +65,39 @@ def cmd_fmi(args):
         if lines:
             sys.stdout.write("\n".join(lines) + "\n")
     print(f"Consumed: {dt:.2f} sec, totalSmem: {total}", file=sys.stderr)
+
+
+def cmd_kmer_cnt(args):
+    """kmer-cnt --reads f --config cfg [--kmer k] (kmer_cnt.cpp:31-106).
+
+    Counts canonical k-mers (use_minimizers=0, the default) or window
+    minimizers (use_minimizers=1) and prints the JAX package's stderr line.
+    In minimizer mode it prints the number of emitted minimizers, the sum of
+    the emission mask: the JAX CLI sums the (raw, mask) pair there and
+    raises (genomicsbench_tpu/cli.py:208-212)."""
+    from genomicsbench_tpu_torch.config import load_keyvalue_config
+    from genomicsbench_tpu_torch.io.seqio import load_fastx_batch
+    from genomicsbench_tpu_torch.ops.kmer import count_kmers_stats, minimizer_mask
+
+    resolve_device(args.device)
+    cfg = load_keyvalue_config(args.config) if args.config else {}
+    if args.debug:      # the JAX package's Logger line (utils/observability.py:42)
+        print(f"[{time.strftime('%H:%M:%S')}] [{'DEBUG':7s}] config: {cfg}", file=sys.stderr)
+    k = args.kmer or int(cfg.get("kmer_size", 15))
+    use_min = bool(cfg.get("use_minimizers", False))
+    window = int(cfg.get("minimizer_window", 5))
+    batch = load_fastx_batch(args.reads)
+    t0 = time.perf_counter()
+    if use_min:
+        _, mask = minimizer_mask(batch.codes, batch.lengths, k=k, window=window,
+                                 device=args.device)
+        n = int(mask.sum())
+        print(f"Kernel time: {time.perf_counter() - t0:.3f} sec  minimizers: {n}",
+              file=sys.stderr)
+    else:
+        uniq, total = count_kmers_stats(batch.codes, batch.lengths, k, device=args.device)
+        print(f"Kernel time: {time.perf_counter() - t0:.3f} sec  unique kmers: {uniq}  "
+              f"total: {total}", file=sys.stderr)
 
 
 def cmd_bsw(args):
@@ -522,6 +555,18 @@ def build_parser():
     s.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     s.set_defaults(fn=cmd_call_methylation)
+
+    s = sub.add_parser("kmer-cnt", help="k-mer counting / minimizers")
+    s.add_argument("--reads", required=True)
+    s.add_argument("--config")
+    s.add_argument("--kmer", type=int)
+    s.add_argument("--threads", type=int, default=1,
+                   help="accepted for run-cpu.sh parity (ignored)")
+    s.add_argument("--debug", action="store_true",
+                   help="debug-level logging (kmer_cnt.cpp:144-152)")
+    s.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    s.set_defaults(fn=cmd_kmer_cnt)
 
     s = sub.add_parser("meth-freq", help="methylation frequency aggregation")
     s.add_argument("-i", "--input", required=True)

@@ -115,3 +115,59 @@ def load_abea_profile(name_or_path: str) -> AbeaRunProfile:
         batch_size_bases=int(toks[4]), num_workers=int(toks[5]),
         ultra_thresh=int(toks[6]),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class KmerParams:
+    """Flye k-mer counting / minimizer index.
+
+    Reference: benchmarks/kmer-cnt/config.h + Flye asm_raw_reads.cfg keys;
+    hard counter saturation at 15 (4-bit) with overflow table
+    (vertex_index.cpp:524-570).
+    """
+
+    kmer_size: int = 15
+    use_minimizers: bool = True
+    minimizer_window: int = 5
+    sample_rate: int = 1
+    hard_counter_max: int = 15
+
+
+def kmer_params_from_dict(d: dict) -> KmerParams:
+    """The port's KmerParams from `dataclasses.asdict` of the JAX package's
+    (same field names and meanings; an unknown field raises TypeError)."""
+    return KmerParams(**d)
+
+
+def load_keyvalue_config(path) -> dict:
+    """Flye-style key=value config with %include directives
+    (kmer-cnt config.h:35-72).  Values are parsed as int/float/bool when
+    possible; later keys override earlier ones; %include paths are
+    resolved relative to the including file."""
+    import pathlib
+
+    path = pathlib.Path(path)
+    out: dict = {}
+    for raw in path.read_text().splitlines():
+        line = raw.split(";")[0].split("#")[0].strip()
+        if not line:
+            continue
+        if line.startswith("%include"):
+            inc = line.split(None, 1)[1].strip().strip('"')
+            out.update(load_keyvalue_config(path.parent / inc))
+            continue
+        if "=" not in line:
+            continue
+        key, val = (t.strip() for t in line.split("=", 1))
+        for cast in (int, float):
+            try:
+                val = cast(val)
+                break
+            except (TypeError, ValueError):
+                continue
+        if val in ("true", "True"):
+            val = True
+        elif val in ("false", "False"):
+            val = False
+        out[key] = val
+    return out

@@ -21,6 +21,9 @@
   lock, so two threads that load at once run one nvcc per source.
 * The kernel's launch configuration is a host function of the padded query
   width alone.
+* The kmer-cnt entry points raise without a card; its wrappers refuse k
+  outside 1..16, a window below 1, lengths outside the batch's width and
+  wrong dtypes, before any launch.
 """
 
 import ast
@@ -42,7 +45,7 @@ from genomicsbench_tpu_torch.config import BswParams, bsw_params_from_dict
 from genomicsbench_tpu_torch.io.anchors import anchor_calls_from_dicts, write_anchor_calls
 from genomicsbench_tpu_torch.io.pairs import PairBatch, write_pairs
 from genomicsbench_tpu_torch.io.phmm_text import PhmmBatch, PhmmRead, write_phmm_testfile
-from genomicsbench_tpu_torch.ops import abea, bsw, chain, eventalign, fmi, pairhmm, poa
+from genomicsbench_tpu_torch.ops import abea, bsw, chain, eventalign, fmi, kmer, pairhmm, poa
 from genomicsbench_tpu_torch.ops import methylation as meth
 
 from torch_abea_cases import _model as abea_model
@@ -65,6 +68,7 @@ PORT_FILES = sorted((ROOT / "genomicsbench_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "torch_chain_cases.py", ROOT / "tests" / "torch_phmm_cases.py",
     ROOT / "tests" / "torch_abea_cases.py", ROOT / "tests" / "torch_poa_cases.py",
     ROOT / "tests" / "torch_fmi_cases.py", ROOT / "tests" / "torch_meth_cases.py",
+    ROOT / "tests" / "torch_kmer_cases.py",
 ]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "genomicsbench_tpu")
 
@@ -121,6 +125,8 @@ def test_port_import_loads_no_jax():
             "import genomicsbench_tpu_torch.ops.fmi, genomicsbench_tpu_torch.io.seqio\n"
             "import genomicsbench_tpu_torch.ops.methylation, genomicsbench_tpu_torch.io.bam\n"
             "import genomicsbench_tpu_torch.ops.ref_align\n"
+            "import genomicsbench_tpu_torch.ops.kmer, genomicsbench_tpu_torch.oracle.kmer\n"
+            "import genomicsbench_tpu_torch.utils\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'genomicsbench_tpu')]\n"
             "assert not bad, bad\n")
@@ -865,3 +871,107 @@ def test_meth_wrapper_checks_inputs(fault, monkeypatch):
     good = _meth_tables()
     out = meth.meth_forward(good)
     assert out.dtype == torch.float32 and out.shape == (4,) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("entry", ["count_kmers", "count_kmers_stats", "per_position_freqs",
+                                   "minimizer_mask", "build_index_minimizers",
+                                   "build_index_uneven_coverage", "cli_count", "cli_minimizers"])
+def test_kmer_entry_points_raise_without_card(no_card, entry, tmp_path):
+    seq = np.random.default_rng(0).integers(0, 4, (3, 40)).astype(np.uint8)
+    lens = np.array([40, 17, 30], np.int32)
+    fa = tmp_path / "r.fa"
+    fa.write_text("".join(f">r{i}\n{''.join('ACGT'[c] for c in row)}\n"
+                          for i, row in enumerate(seq)))
+    cfg = tmp_path / "k.cfg"
+    cfg.write_text(f"use_minimizers={int(entry == 'cli_minimizers')}\n")
+    dev_kw = lambda dev: {"device": dev[0]} if dev else {}          # noqa: E731
+    cli = lambda *dev: torch_cli_main(["kmer-cnt", "--reads", str(fa), "--config", str(cfg)]
+                                      + (["--device", dev[0]] if dev else []))
+    run = {
+        "count_kmers": lambda *dev: kmer.count_kmers(seq, lens, 9, **dev_kw(dev)),
+        "count_kmers_stats": lambda *dev: kmer.count_kmers_stats(seq, lens, 9, **dev_kw(dev)),
+        "per_position_freqs": lambda *dev: kmer._per_position_freqs(seq, lens, k=9,
+                                                                    **dev_kw(dev)),
+        "minimizer_mask": lambda *dev: kmer.minimizer_mask(seq, lens, k=9, window=3,
+                                                           **dev_kw(dev)),
+        "build_index_minimizers": lambda *dev: kmer.build_index_minimizers(
+            seq, lens, k=9, window=3, **dev_kw(dev)),
+        "build_index_uneven_coverage": lambda *dev: kmer.build_index_uneven_coverage(
+            seq, lens, k=9, **dev_kw(dev)),
+        "cli_count": cli, "cli_minimizers": cli,
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run("cuda:0")
+    run("cpu")
+
+
+@pytest.mark.parametrize("fault", ["k_low", "k_high", "window", "length_high", "length_low",
+                                   "codes_dtype", "lengths_dtype", "codes_shape", "mode",
+                                   "keys_dtype", "order_dtype", "sites_planes"])
+def test_kmer_wrappers_check_inputs(fault, monkeypatch):
+    """canonical_keys, kmer_runs, kmer_freqs, minimizer_walk and
+    minimizer_sites refuse what the kernels do not take, on the host, before
+    they would build or launch anything."""
+    from genomicsbench_tpu_torch import _kernels
+
+    def no_launch():
+        raise AssertionError("reached the kernel")
+
+    monkeypatch.setattr(_kernels, "load", no_launch)
+    codes = torch.from_numpy(np.random.default_rng(1).integers(0, 4, (3, 24)).astype(np.uint8))
+    lens = torch.tensor([24, 0, 10], dtype=torch.int32)
+    err = ValueError
+    if fault in ("k_low", "k_high"):
+        k = 0 if fault == "k_low" else 17
+        calls = [lambda: kmer.canonical_keys(codes, lens, k),
+                 lambda: kmer.minimizer_walk(codes, lens, k, 5),
+                 lambda: kmer.count_kmers(codes.numpy(), lens.numpy(), k, device="cpu")]
+    elif fault == "window":
+        calls = [lambda: kmer.minimizer_walk(codes, lens, 15, 0),
+                 lambda: kmer.minimizer_mask(codes.numpy(), lens.numpy(), k=5, window=0,
+                                             device="cpu")]
+    elif fault in ("length_high", "length_low"):
+        bad = lens.clone()
+        bad[2] = 25 if fault == "length_high" else -1
+        calls = [lambda: kmer.canonical_keys(codes, bad, 5),
+                 lambda: kmer.minimizer_walk(codes, bad, 5, 3),
+                 lambda: kmer.count_kmers_stats(codes.numpy(), bad.numpy(), 5, device="cpu")]
+    elif fault == "codes_dtype":
+        err = TypeError
+        calls = [lambda: kmer.canonical_keys(codes.int(), lens, 5),
+                 lambda: kmer.minimizer_walk(codes.long(), lens, 5, 3)]
+    elif fault == "lengths_dtype":
+        err = TypeError
+        calls = [lambda: kmer.canonical_keys(codes, lens.long(), 5),
+                 lambda: kmer.minimizer_walk(codes, lens.long(), 5, 3)]
+    elif fault == "codes_shape":
+        calls = [lambda: kmer.canonical_keys(codes.reshape(-1), lens, 5),
+                 lambda: kmer.canonical_keys(codes.t(), lens, 5),
+                 lambda: kmer.minimizer_walk(codes[:, ::2], lens, 5, 3)]
+    elif fault == "mode":
+        calls = [lambda: kmer.canonical_keys(codes, lens, 5, 2),
+                 lambda: kmer.canonical_keys(codes, lens, 5, -1)]
+    elif fault == "keys_dtype":
+        err = TypeError
+        keys = torch.arange(10, dtype=torch.int64)
+        calls = [lambda: kmer.kmer_runs(keys),
+                 lambda: kmer.kmer_freqs(keys, torch.arange(10, dtype=torch.int64))]
+    elif fault == "order_dtype":
+        err = TypeError
+        keys = torch.arange(10, dtype=torch.int32)
+        calls = [lambda: kmer.kmer_freqs(keys, torch.arange(10, dtype=torch.int32)),
+                 lambda: kmer.kmer_freqs(keys, torch.arange(9, dtype=torch.int64))]
+    else:
+        err = TypeError
+        raw, mask = kmer.minimizer_walk(codes, lens, 5, 3)
+        offs = torch.zeros(3, dtype=torch.int64)
+        calls = [lambda: kmer.minimizer_sites(raw.int(), mask, lens, offs, 5),
+                 lambda: kmer.minimizer_sites(raw, mask[:, 1:], lens, offs, 5),
+                 lambda: kmer.minimizer_sites(raw, mask, lens, offs.int(), 5)]
+    for call in calls:
+        with pytest.raises(err):
+            call()
+    keys = kmer.canonical_keys(codes, lens, 5)
+    assert keys.dtype == torch.int32 and keys.shape == (72,)
