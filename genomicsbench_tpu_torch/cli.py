@@ -10,8 +10,8 @@ format.
 
 Subcommands: fmi, bsw, phmm, chain, poa, eventalign (event space, or
 reference coordinates with -b/-g, or event-space records with --sam),
-call-methylation (event space, or on the genome with -b/-g), kmer-cnt, and
-the host-only meth-freq, index and freq-merge.
+call-methylation (event space, or on the genome with -b/-g), kmer-cnt,
+nn-base, and the host-only meth-freq, index and freq-merge.
 """
 
 from __future__ import annotations
@@ -98,6 +98,63 @@ def cmd_kmer_cnt(args):
         uniq, total = count_kmers_stats(batch.codes, batch.lengths, k, device=args.device)
         print(f"Kernel time: {time.perf_counter() - t0:.3f} sec  unique kmers: {uniq}  "
               f"total: {total}", file=sys.stderr)
+
+
+def cmd_nn_base(args):
+    """basecall.py: chunked CTC basecalling of raw signals (.npz of float
+    arrays, or a fast5 file or directory) to FASTQ on stdout
+    (basecall.py:630-645), in either of the JAX CLI's argument shapes
+    (genomicsbench_tpu/cli.py:398-459): `--signals x.npz`, or the
+    reference's positional `nn-base <model_directory> <reads_directory>
+    --device cuda:0 --fastq` (run-gpu.sh:28).  A weights_*.tar in the model
+    directory (the last in name order) is imported as bonito's state dict;
+    otherwise the weights are `init_params`' deterministic random init,
+    which differs from the JAX CLI's.  --beamsize 1 takes the greedy path
+    with per-base qualities; else the qualities are all 'I'."""
+    import glob
+    import os
+
+    from genomicsbench_tpu_torch.io.signals import load_signals
+    from genomicsbench_tpu_torch.models.basecaller import (
+        BasecallerConfig, basecall_signals, basecall_with_quals, build_model,
+        import_torch_state_dict, init_params)
+
+    cfg = BasecallerConfig()
+    params = None
+    if args.model_directory:
+        tars = sorted(glob.glob(os.path.join(args.model_directory, "weights_*.tar")))
+        if tars:
+            import torch
+
+            params = import_torch_state_dict(torch.load(tars[-1], map_location="cpu"), cfg)
+            print(f"> loaded {os.path.basename(tars[-1])}", file=sys.stderr)
+        else:
+            print("> model directory has no weights_*.tar; using the deterministic random "
+                  "init", file=sys.stderr)
+    signals_src = args.signals or args.reads_directory
+    if not signals_src:
+        print("nn-base: --signals or a reads directory is required", file=sys.stderr)
+        raise SystemExit(2)
+    model = build_model(init_params(cfg) if params is None else params, cfg, args.device)
+    sig = load_signals(signals_src)
+    names = list(sig.keys())
+    t0 = time.perf_counter()
+    raws = [np.asarray(sig[n], np.float32) for n in names]
+    if args.beamsize <= 1:
+        pairs = basecall_with_quals(model, raws, chunksize=args.chunksize,
+                                    overlap=args.overlap, device=args.device)
+        seqs = [s for s, _ in pairs]
+        quals = [q for _, q in pairs]
+    else:
+        seqs = basecall_signals(model, raws, chunksize=args.chunksize, overlap=args.overlap,
+                                beamsize=args.beamsize, device=args.device)
+        quals = ["I" * len(s) for s in seqs]
+    dt = time.perf_counter() - t0
+    n_samples = sum(len(sig[n]) for n in names)
+    for n, s, q in zip(names, seqs, quals):
+        print(f"@{n}\n{s}\n+\n{q}")
+    print(f"> completed reads: {len(names)}", file=sys.stderr)
+    print(f"> samples per second {n_samples / dt:.1E}", file=sys.stderr)
 
 
 def cmd_bsw(args):
@@ -567,6 +624,22 @@ def build_parser():
     s.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     s.set_defaults(fn=cmd_kmer_cnt)
+
+    s = sub.add_parser("nn-base", help="neural basecalling")
+    s.add_argument("model_directory", nargs="?",
+                   help="bonito model dir (basecall.py shape; "
+                        "weights_*.tar imported if present)")
+    s.add_argument("reads_directory", nargs="?",
+                   help="fast5 directory (basecall.py shape)")
+    s.add_argument("--signals", help=".npz of raw signals, or a fast5 file or directory")
+    s.add_argument("--fastq", action="store_true",
+                   help="accepted for parity (FASTQ is the only output)")
+    s.add_argument("--chunksize", type=int, default=6000)
+    s.add_argument("--overlap", type=int, default=300)
+    s.add_argument("--beamsize", type=int, default=5)
+    s.add_argument("--device", default="cuda",
+                   help="cuda (default; cuda:N for card N; raises without a card) or cpu")
+    s.set_defaults(fn=cmd_nn_base)
 
     s = sub.add_parser("meth-freq", help="methylation frequency aggregation")
     s.add_argument("-i", "--input", required=True)

@@ -1,11 +1,12 @@
 """The port's host library (C++), built with g++ and loaded with ctypes.
 
-Four sources, listed in `SOURCES` with their C entry points: `peaks.cpp`,
+Five sources, listed in `SOURCES` with their C entry points: `peaks.cpp`,
 the sequential peak state machine of event detection; `poa.cpp`, the
 partial-order-alignment graph engine (fusion, topological export, path
 decoding, consensus); `sais.cpp`, the linear-time suffix array of the
-FM-index build; and `psr9.cpp`, the PSR9 profile-HMM Viterbi of
-eventalign's reference-coordinate realignment.  At first use each source is
+FM-index build; `psr9.cpp`, the PSR9 profile-HMM Viterbi of eventalign's
+reference-coordinate realignment; and `ctc.cpp`, the basecaller's CTC
+prefix beam search.  At first use each source is
 compiled with `g++ -O2 -ffp-contract=off` (no multiply-add contracted into
 an FMA, so every float operation rounds as written) into its own library
 under `build/genomicsbench_tpu_torch/` at the repo root, named with a hash
@@ -55,6 +56,9 @@ SOURCES = {
         "gb_psr9_viterbi": (_I64, [ctypes.c_char_p, ctypes.c_char_p, _I64, _P, _I64,
                                    _F32, _F32, _F32, _P, _P, ctypes.c_double]
                             + [_I64] * 5 + [_P, _P, _P, _I64]),
+    }),
+    "ctc": (HERE / "ctc.cpp", {
+        "gb_ctc_beam_search": (_I64, [_P, _I64, _I32, _I32, _F32, _P, _I64]),
     }),
 }
 
@@ -171,3 +175,20 @@ def psr9_viterbi(fwd_seq: bytes, rc_seq: bytes, ev_mean, scale, shift, var,
     if n < 0:
         raise RuntimeError("psr9_viterbi: output capacity exceeded")
     return out_e[:n].copy(), out_k[:n].copy(), out_s[:n].copy()
+
+
+def ctc_beam_search(probs, beamsize: int = 5, threshold: float = 1e-3) -> np.ndarray:
+    """CTC prefix beam search over (T, L) posteriors (gb_ctc_beam_search):
+    the decoded class ids (int32, 1-based; blank is class 0)."""
+    probs = np.ascontiguousarray(probs, np.float32)
+    if probs.ndim != 2 or not 1 <= probs.shape[1] <= 9:
+        raise ValueError(f"probs must be (T, L) with 1 to 9 classes, got {probs.shape}")
+    if beamsize < 1:
+        raise ValueError(f"beamsize must be at least 1, got {beamsize}")
+    T, L = probs.shape
+    out = np.empty(T + 1, np.int32)
+    n = load().gb_ctc_beam_search(probs.ctypes.data, T, L, beamsize, threshold,
+                                  out.ctypes.data, len(out))
+    if n < 0:
+        raise ValueError("ctc_beam_search: decoded sequence overflow")
+    return out[:n].copy()

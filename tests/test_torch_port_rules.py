@@ -14,8 +14,9 @@
 * The methylation wrapper refuses ranks outside 0..15624, instances of no
   k-mer or more than 256, events and reads outside the uploaded tables, a
   short flank table and unknown flags, with ValueError, before any launch.
-* The host library (native/peaks.cpp, native/poa.cpp, native/sais.cpp and
-  native/psr9.cpp, one library per source) is built into a temporary file
+* The host library (native/peaks.cpp, native/poa.cpp, native/sais.cpp,
+  native/psr9.cpp and native/ctc.cpp, one library per source) is built
+  into a temporary file
   and moved into place, so
   concurrent test workers never load half of it; the kernel build holds a
   lock, so two threads that load at once run one nvcc per source.
@@ -24,6 +25,11 @@
 * The kmer-cnt entry points raise without a card; its wrappers refuse k
   outside 1..16, a window below 1, lengths outside the batch's width and
   wrong dtypes, before any launch.
+* The nn-base entry points (basecall_signals, basecall_with_quals,
+  build_model, the CLI) raise without a card unless asked for the CPU; the
+  depthwise, epilogue and head wrappers refuse wrong dtypes and shapes, an
+  odd channel count and a k whose shared-memory tile a block cannot hold,
+  before any launch.
 """
 
 import ast
@@ -68,7 +74,7 @@ PORT_FILES = sorted((ROOT / "genomicsbench_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "torch_chain_cases.py", ROOT / "tests" / "torch_phmm_cases.py",
     ROOT / "tests" / "torch_abea_cases.py", ROOT / "tests" / "torch_poa_cases.py",
     ROOT / "tests" / "torch_fmi_cases.py", ROOT / "tests" / "torch_meth_cases.py",
-    ROOT / "tests" / "torch_kmer_cases.py",
+    ROOT / "tests" / "torch_kmer_cases.py", ROOT / "tests" / "torch_basecaller_cases.py",
 ]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "genomicsbench_tpu")
 
@@ -126,7 +132,9 @@ def test_port_import_loads_no_jax():
             "import genomicsbench_tpu_torch.ops.methylation, genomicsbench_tpu_torch.io.bam\n"
             "import genomicsbench_tpu_torch.ops.ref_align\n"
             "import genomicsbench_tpu_torch.ops.kmer, genomicsbench_tpu_torch.oracle.kmer\n"
-            "import genomicsbench_tpu_torch.utils\n"
+            "import genomicsbench_tpu_torch.utils, genomicsbench_tpu_torch.io.fast5\n"
+            "import genomicsbench_tpu_torch.models.basecaller\n"
+            "import genomicsbench_tpu_torch.ops.basecaller\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'genomicsbench_tpu')]\n"
             "assert not bad, bad\n")
@@ -526,8 +534,8 @@ def test_native_build_replaces_a_temporary_file(tmp_path, monkeypatch):
     monkeypatch.setattr(native.subprocess, "run", run)
     monkeypatch.setattr(native.os, "replace", replace)
     libs = native.build()
-    assert sorted(libs) == ["peaks", "poa", "psr9", "sais"]
-    assert [c[0] for c in calls] == ["cc", "replace"] * 4
+    assert sorted(libs) == ["ctc", "peaks", "poa", "psr9", "sais"]
+    assert [c[0] for c in calls] == ["cc", "replace"] * 5
     for k, (name, lib) in enumerate(libs.items()):
         assert lib == native.library_path(name) and lib.exists()
         cc, rep = calls[2 * k], calls[2 * k + 1]
@@ -975,3 +983,103 @@ def test_kmer_wrappers_check_inputs(fault, monkeypatch):
             call()
     keys = kmer.canonical_keys(codes, lens, 5)
     assert keys.dtype == torch.int32 and keys.shape == (72,)
+
+
+@pytest.mark.parametrize("entry", ["basecall_signals", "basecall_with_quals", "build_model",
+                                   "cli"])
+def test_nn_base_entry_points_raise_without_card(no_card, entry, tmp_path):
+    from genomicsbench_tpu_torch.models import basecaller as bc
+
+    cfg = bc.BasecallerConfig.tiny()
+    state = bc.init_params(cfg)
+    sigs = [np.random.default_rng(0).normal(size=700).astype(np.float32)]
+    np.savez(tmp_path / "s.npz", r0=sigs[0])
+    dev_kw = lambda dev: {"device": dev[0]} if dev else {}          # noqa: E731
+    run = {
+        "basecall_signals": lambda *dev: bc.basecall_signals(state, sigs, cfg, **dev_kw(dev)),
+        "basecall_with_quals": lambda *dev: bc.basecall_with_quals(state, sigs, cfg,
+                                                                   **dev_kw(dev)),
+        "build_model": lambda *dev: bc.build_model(state, cfg, **dev_kw(dev)),
+        "cli": lambda *dev: torch_cli_main(["nn-base", "--signals", str(tmp_path / "s.npz"),
+                                            "--beamsize", "1"]
+                                           + (["--device", dev[0]] if dev else [])),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run("cuda:0")
+    run("cpu")
+
+
+@pytest.mark.parametrize("fault", ["x_dtype", "w_dtype", "channels", "odd_channels", "rank",
+                                   "contiguity", "k_too_large", "stride", "bn_shape",
+                                   "bn_dtype", "res_pairing", "res_shape", "head_labels",
+                                   "head_channels", "head_dtype", "device"])
+def test_nn_base_wrappers_check_inputs(fault, monkeypatch):
+    """depthwise_conv, bn_act and decoder_head refuse what the kernels do
+    not take, on the host, before they would build or launch anything."""
+    from genomicsbench_tpu_torch import _kernels
+    from genomicsbench_tpu_torch.ops import basecaller as ops
+
+    def no_launch():
+        raise AssertionError("reached the kernel")
+
+    monkeypatch.setattr(_kernels, "load", no_launch)
+    bf = torch.bfloat16
+    x = torch.randn(2, 40, 64).to(bf)
+    w = torch.randn(9, 64).to(bf)
+    p = ops.bn_params(torch.ones(64), torch.zeros(64), torch.zeros(64), torch.ones(64))
+    hw = torch.randn(64, 5).to(bf)
+    err = ValueError
+    if fault == "x_dtype":
+        err, calls = TypeError, [lambda: ops.depthwise_conv(x.float(), w),
+                                 lambda: ops.bn_act(x.half(), p),
+                                 lambda: ops.decoder_head(x.float(), hw)]
+    elif fault == "w_dtype":
+        err, calls = TypeError, [lambda: ops.depthwise_conv(x, w.float()),
+                                 lambda: ops.decoder_head(x, hw.float())]
+    elif fault == "channels":
+        calls = [lambda: ops.depthwise_conv(x, w[:, :32].contiguous())]
+    elif fault == "odd_channels":
+        calls = [lambda: ops.depthwise_conv(x[..., :63].contiguous(), w[:, :63].contiguous()),
+                 lambda: ops.bn_act(x[..., :63].contiguous(), p[:, :63].contiguous())]
+    elif fault == "rank":
+        calls = [lambda: ops.depthwise_conv(x[0], w), lambda: ops.decoder_head(x[0], hw)]
+    elif fault == "contiguity":
+        calls = [lambda: ops.depthwise_conv(x.transpose(0, 1), w),
+                 lambda: ops.bn_act(x[:, ::2], p)]
+    elif fault == "k_too_large":
+        big = torch.zeros(800, 64, dtype=bf)     # 800 taps: past 227 KB
+        assert ops.depthwise_shared_bytes(780, 1) <= ops.SHARED_MAX < \
+            ops.depthwise_shared_bytes(781, 1)
+        calls = [lambda: ops.depthwise_conv(x, big),
+                 lambda: ops.depthwise_conv(x, torch.zeros(600, 64, dtype=bf), stride=3)]
+    elif fault == "stride":
+        calls = [lambda: ops.depthwise_conv(x, w, stride=0)]
+    elif fault == "bn_shape":
+        calls = [lambda: ops.bn_act(x, p[:2].contiguous()),
+                 lambda: ops.bn_act(x, p[:, :32].contiguous())]
+    elif fault == "bn_dtype":
+        err, calls = TypeError, [lambda: ops.bn_act(x, p.double())]
+    elif fault == "res_pairing":
+        calls = [lambda: ops.bn_act(x, p, x), lambda: ops.bn_act(x, p, None, p)]
+    elif fault == "res_shape":
+        calls = [lambda: ops.bn_act(x, p, x[:, :20].contiguous(), p)]
+    elif fault == "head_labels":
+        calls = [lambda: ops.decoder_head(x, torch.zeros(64, 9, dtype=bf))]
+    elif fault == "head_channels":
+        calls = [lambda: ops.decoder_head(x, torch.zeros(48, 5, dtype=bf)),
+                 lambda: ops.decoder_head(torch.zeros(1, 4, 2048, dtype=bf),
+                                          torch.zeros(2048, 8, dtype=bf))]
+    elif fault == "head_dtype":
+        err, calls = TypeError, [lambda: ops.decoder_head(x, hw, torch.bfloat16)]
+    else:
+        calls = [lambda: ops.depthwise_conv(x, w.to("meta")), lambda: ops.bn_act(x, p.to("meta"))]
+    for call in calls:
+        with pytest.raises(err):
+            call()
+    assert ops.depthwise_conv(x, w).shape == (2, 40, 64)
+    assert ops.depthwise_conv(x, w, stride=3).shape == (2, 14, 64)
+    assert ops.depthwise_shared_bytes(123, 1) <= ops.SHARED_MAX
+    assert ops.bn_act(x, p, x, p).shape == x.shape
+    assert ops.decoder_head(x, hw).dtype == torch.float16
