@@ -23,6 +23,8 @@ import threading
 import types
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "genomicsbench_tpu_torch"
 NVCC_FLAGS = (
@@ -63,6 +65,11 @@ SOURCES = {
                    {"gb_bc_depthwise": [_P, _P, _L] + [_I] * 5 + [_P, _P],
                     "gb_bc_bn_act": [_P] * 4 + [_L, _I, _I, _P, _P],
                     "gb_bc_head": [_P, _P, _L, _I, _I, _P, _P]}),
+    "grm": (CSRC / "grm.cu",
+            {"gb_grm_standardize": [_P, _P, _L, _I, _P, _P, _P],
+             "gb_grm_finish": [_P, _P, _I, _I, _P, _P]}),
+    "longread": (CSRC / "longread.cu",
+                 {"gb_longread_nw": [_P, _P] + [_I] * 6 + [_P, _P]}),
 }
 
 _lock = threading.Lock()
@@ -139,3 +146,34 @@ def load() -> types.SimpleNamespace:
                     fns[fn_name] = fn
             _lib = types.SimpleNamespace(**fns)
         return _lib
+
+
+def launch(dev, fn: str, *args) -> None:
+    """Call the C entry point `fn` with `args` and the current stream of
+    `dev` appended, on that device; raise if it returns a CUDA error (a
+    launch that is refused never runs, and no synchronise reports it)."""
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed with cudaError {rc}")
+
+
+def check_tensor(name: str, x, dtype, dim: int) -> None:
+    """A wrapper's check of one input: its dtype, its rank, contiguity."""
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if x.dim() != dim:
+        raise ValueError(f"{name} must have {dim} dimensions, got shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_device(dev, *tensors) -> None:
+    """Every tensor given (None skipped) lies on `dev`, a cuda or cpu device."""
+    for t in tensors:
+        if t is not None and t.device != dev:
+            raise ValueError(f"every tensor must be on {dev}, got one on {t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the kernels run on cuda or cpu tensors, not {dev}")

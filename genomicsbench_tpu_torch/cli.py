@@ -11,7 +11,7 @@ format.
 Subcommands: fmi, bsw, phmm, chain, poa, eventalign (event space, or
 reference coordinates with -b/-g, or event-space records with --sam),
 call-methylation (event space, or on the genome with -b/-g), kmer-cnt,
-nn-base, and the host-only meth-freq, index and freq-merge.
+nn-base, grm, and the host-only meth-freq, index and freq-merge.
 """
 
 from __future__ import annotations
@@ -514,6 +514,35 @@ def cmd_freq_merge(args):
         print(f"{start}\t{end}\t{ncpg}\t{called}\t{meth}\t{freq:.3f}\t{seq}")
 
 
+def cmd_grm(args):
+    """plink2 --pgen/--pvar/--psam --maf --make-grm-bin --out (run-cpu.sh:53,84;
+    --bfile covers plink1 bed/bim/fam, or a .pgen beside the prefix, the
+    shape the JAX package's suite writes).  The GRM line on stderr is the
+    JAX CLI's."""
+    import os
+
+    from genomicsbench_tpu_torch.io.plink import read_bed, read_pgen
+    from genomicsbench_tpu_torch.ops.grm import grm, write_grm_bin
+
+    resolve_device(args.device)
+    if args.pgen:
+        prefix = args.pgen[:-5] if args.pgen.endswith(".pgen") else args.pgen
+        geno, ids = read_pgen(prefix)
+    elif args.bfile and os.path.exists(args.bfile + ".pgen"):
+        geno, ids = read_pgen(args.bfile)
+    elif args.bfile:
+        geno, ids = read_bed(args.bfile)
+    else:
+        print("grm: one of --pgen or --bfile is required", file=sys.stderr)
+        raise SystemExit(2)
+    t0 = time.perf_counter()
+    mat, nobs = grm(geno, maf=args.maf, device=args.device)
+    dt = time.perf_counter() - t0
+    if args.out:
+        write_grm_bin(args.out, mat, nobs, ids)
+    print(f"GRM: {mat.shape[0]} samples, {dt:.2f} sec", file=sys.stderr)
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="gbench", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -640,6 +669,21 @@ def build_parser():
     s.add_argument("--device", default="cuda",
                    help="cuda (default; cuda:N for card N; raises without a card) or cpu")
     s.set_defaults(fn=cmd_nn_base)
+
+    s = sub.add_parser("grm", help="genetic relationship matrix")
+    s.add_argument("--bfile", help="plink1 bed/bim/fam prefix (or a .pgen beside it)")
+    s.add_argument("--pgen", help="plink2 .pgen path or prefix (run-cpu.sh:53 shape)")
+    s.add_argument("--pvar")
+    s.add_argument("--psam")
+    s.add_argument("--make-grm-bin", action="store_true",
+                   help="accepted for parity (grm.bin written when --out)")
+    s.add_argument("--threads", type=int, default=1,
+                   help="accepted for run-cpu.sh parity (ignored)")
+    s.add_argument("--maf", type=float, default=0.01)
+    s.add_argument("--out")
+    s.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    s.set_defaults(fn=cmd_grm)
 
     s = sub.add_parser("meth-freq", help="methylation frequency aggregation")
     s.add_argument("-i", "--input", required=True)

@@ -35,6 +35,10 @@ from __future__ import annotations
 
 import torch
 
+from genomicsbench_tpu_torch._kernels import check_device as _check_device
+from genomicsbench_tpu_torch._kernels import check_tensor as _check
+from genomicsbench_tpu_torch._kernels import launch as _launch
+
 _BF16, _F32, _F16 = torch.bfloat16, torch.float32, torch.float16
 BN_EPS = 1e-5
 # gb_bc_depthwise's tiling (csrc/basecaller.cu): output frames and channels
@@ -54,34 +58,6 @@ def depthwise_out_len(T: int, k: int, stride: int) -> int:
 def depthwise_shared_bytes(k: int, stride: int) -> int:
     """The shared memory of one gb_bc_depthwise block."""
     return ((DW_TILE - 1) * stride + 2 * k) * DW_SLAB * 2
-
-
-def _check(name, x, dtype, dim):
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if x.dim() != dim:
-        raise ValueError(f"{name} must have {dim} dimensions, got shape {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _check_device(dev, *tensors):
-    for t in tensors:
-        if t is not None and t.device != dev:
-            raise ValueError(f"every tensor must be on {dev}, got one on {t.device}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"the basecaller runs on cuda or cpu tensors, not {dev}")
-
-
-def _launch(dev, fn, *args):
-    from genomicsbench_tpu_torch import _kernels
-
-    lib = _kernels.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed with cudaError {rc}")
 
 
 # ------------------------------------------------------------ depthwise conv

@@ -30,6 +30,11 @@
   depthwise, epilogue and head wrappers refuse wrong dtypes and shapes, an
   odd channel count and a k whose shared-memory tile a block cannot hold,
   before any launch.
+* The grm and long-read entry points (grm, banded_nw, the grm CLI) raise
+  without a card unless asked for the CPU; the standardise, finish and
+  banded NW wrappers refuse wrong dtypes, shapes, devices and contiguity, a
+  band outside 1..8,192 and an end cell outside the band, before any
+  launch.
 """
 
 import ast
@@ -75,6 +80,7 @@ PORT_FILES = sorted((ROOT / "genomicsbench_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "torch_abea_cases.py", ROOT / "tests" / "torch_poa_cases.py",
     ROOT / "tests" / "torch_fmi_cases.py", ROOT / "tests" / "torch_meth_cases.py",
     ROOT / "tests" / "torch_kmer_cases.py", ROOT / "tests" / "torch_basecaller_cases.py",
+    ROOT / "tests" / "torch_grm_cases.py", ROOT / "tests" / "torch_longread_cases.py",
 ]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "genomicsbench_tpu")
 
@@ -1083,3 +1089,142 @@ def test_nn_base_wrappers_check_inputs(fault, monkeypatch):
     assert ops.depthwise_shared_bytes(123, 1) <= ops.SHARED_MAX
     assert ops.bn_act(x, p, x, p).shape == x.shape
     assert ops.decoder_head(x, hw).dtype == torch.float16
+
+
+def test_grm_and_longread_import_loads_no_jax():
+    code = ("import sys\n"
+            "import genomicsbench_tpu_torch.ops.grm, genomicsbench_tpu_torch.io.plink\n"
+            "import genomicsbench_tpu_torch.ops.longread, genomicsbench_tpu_torch.oracle.grm\n"
+            "import genomicsbench_tpu_torch.oracle.longread, genomicsbench_tpu_torch.cli\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'genomicsbench_tpu')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["grm", "banded_nw", "cli_pgen", "cli_bfile"])
+def test_grm_longread_entry_points_raise_without_card(no_card, entry, tmp_path):
+    from genomicsbench_tpu_torch.io.plink import write_bed, write_pgen
+    from genomicsbench_tpu_torch.ops import grm, longread
+
+    geno = np.random.default_rng(0).integers(0, 4, (30, 9)).astype(np.uint8)
+    write_pgen(str(tmp_path / "p"), geno)
+    write_bed(str(tmp_path / "b"), geno)
+    q = np.random.default_rng(1).integers(0, 4, 50)
+    dev_kw = lambda dev: {"device": dev[0]} if dev else {}          # noqa: E731
+    cli = {"cli_pgen": ["--pgen", str(tmp_path / "p.pgen")],
+           "cli_bfile": ["--bfile", str(tmp_path / "b")]}.get(entry, [])
+    run = {
+        "grm": lambda *dev: grm.grm(geno, **dev_kw(dev)),
+        "banded_nw": lambda *dev: longread.banded_nw(q, q, 16, **dev_kw(dev)),
+        "cli_pgen": lambda *dev: torch_cli_main(["grm", *cli, "--out", str(tmp_path / "o")]
+                                                + (["--device", dev[0]] if dev else [])),
+    }
+    run["cli_bfile"] = run["cli_pgen"]
+    run = run[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run("cuda:0")
+    run("cpu")
+
+
+@pytest.mark.parametrize("fault", ["packed_dtype", "maf_dtype", "packed_rank", "maf_rank",
+                                   "variants", "contiguity", "empty_rows", "device",
+                                   "finish_dtype", "finish_shape", "finish_n"])
+def test_grm_wrappers_check_inputs(fault, monkeypatch):
+    """grm_standardize and grm_finish refuse what the kernels do not take,
+    on the host, before they would build or launch anything."""
+    from genomicsbench_tpu_torch import _kernels
+    from genomicsbench_tpu_torch.ops import grm as ops
+
+    def no_launch():
+        raise AssertionError("reached the kernel")
+
+    monkeypatch.setattr(_kernels, "load", no_launch)
+    packed = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (6, 32)).astype(np.uint8))
+    ok = torch.ones(6, dtype=torch.bool)
+    num = torch.zeros(128, 128)
+    err = ValueError
+    if fault == "packed_dtype":
+        err, calls = TypeError, [lambda: ops.grm_standardize(packed.int(), ok)]
+    elif fault == "maf_dtype":
+        err, calls = TypeError, [lambda: ops.grm_standardize(packed, ok.to(torch.uint8))]
+    elif fault == "packed_rank":
+        calls = [lambda: ops.grm_standardize(packed.reshape(-1), ok)]
+    elif fault == "maf_rank":
+        calls = [lambda: ops.grm_standardize(packed, ok[:, None])]
+    elif fault == "variants":
+        calls = [lambda: ops.grm_standardize(packed, ok[:5])]
+    elif fault == "contiguity":
+        calls = [lambda: ops.grm_standardize(packed[:, ::2], ok),
+                 lambda: ops.grm_standardize(packed.t(), torch.ones(32, dtype=torch.bool)),
+                 lambda: ops.grm_finish(num.t()[:, :64], num[:, :64], 10)]
+    elif fault == "empty_rows":
+        calls = [lambda: ops.grm_standardize(packed[:, :0], ok)]
+    elif fault == "device":
+        calls = [lambda: ops.grm_standardize(packed, ok.to("meta")),
+                 lambda: ops.grm_finish(num, num.to("meta"), 10),
+                 lambda: ops.grm_standardize(packed.to("meta"), ok.to("meta"))]
+    elif fault == "finish_dtype":
+        err, calls = TypeError, [lambda: ops.grm_finish(num.double(), num, 10),
+                                 lambda: ops.grm_finish(num, num.half(), 10)]
+    elif fault == "finish_shape":
+        calls = [lambda: ops.grm_finish(num[:64].contiguous(), num[:64].contiguous(), 10),
+                 lambda: ops.grm_finish(num, num[:64, :64].contiguous(), 10),
+                 lambda: ops.grm_finish(num[0], num[0], 1)]
+    else:
+        calls = [lambda: ops.grm_finish(num, num, 129), lambda: ops.grm_finish(num, num, -1)]
+    for call in calls:
+        with pytest.raises(err):
+            call()
+    x, w = ops.grm_standardize(packed, ok)
+    assert x.shape == w.shape == (6, 128)
+    assert ops.grm_finish(num, num, 10).shape == (2, 55)
+
+
+@pytest.mark.parametrize("fault", ["dtype", "rank", "contiguity", "devices", "band_low",
+                                   "band_high", "band_type", "end_cell"])
+def test_longread_wrapper_checks_inputs(fault, monkeypatch):
+    """longread_nw refuses what gb_longread_nw does not take, on the host,
+    before it would build or launch anything; banded_nw checks the band and
+    the end cell before it uploads."""
+    from genomicsbench_tpu_torch import _kernels
+    from genomicsbench_tpu_torch.ops import longread as ops
+
+    def no_launch():
+        raise AssertionError("reached the kernel")
+
+    monkeypatch.setattr(_kernels, "load", no_launch)
+    q = torch.from_numpy(np.random.default_rng(3).integers(0, 4, 60).astype(np.int32))
+    err = ValueError
+    if fault == "dtype":
+        err, calls = TypeError, [lambda: ops.longread_nw(q.long(), q, 16),
+                                 lambda: ops.longread_nw(q, q.to(torch.uint8), 16)]
+    elif fault == "rank":
+        calls = [lambda: ops.longread_nw(q.reshape(6, 10), q, 16),
+                 lambda: ops.banded_nw(q.numpy().reshape(6, 10), q.numpy(), 16, device="cpu")]
+    elif fault == "contiguity":
+        calls = [lambda: ops.longread_nw(q[::2], q[:30].clone(), 16)]
+    elif fault == "devices":
+        calls = [lambda: ops.longread_nw(q, q.to("meta"), 16),
+                 lambda: ops.longread_nw(q.to("meta"), q.to("meta"), 16)]
+    elif fault == "band_low":
+        calls = [lambda: ops.longread_nw(q, q, 0),
+                 lambda: ops.banded_nw(q.numpy(), q.numpy(), -4, device="cpu")]
+    elif fault == "band_high":
+        calls = [lambda: ops.longread_nw(q, q, ops.MAX_BAND + 1),
+                 lambda: ops.banded_nw(q.numpy(), q.numpy(), 10_000, device="cpu")]
+    elif fault == "band_type":
+        calls = [lambda: ops.longread_nw(q, q, 16.0)]
+    else:
+        calls = [lambda: ops.longread_nw(q, q[:40].clone(), 16),
+                 lambda: ops.longread_nw(q[:40].clone(), q, 16),
+                 lambda: ops.banded_nw(q.numpy(), q.numpy()[:51], 16, device="cpu")]
+    for call in calls:
+        with pytest.raises(err):
+            call()
+    assert int(ops.longread_nw(q, q, 16)) == 60
+    assert ops.banded_nw(q.numpy(), q.numpy()[:53], 16, device="cpu") == 53 - 2 * 7
