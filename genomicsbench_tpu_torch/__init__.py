@@ -7,10 +7,17 @@ easy to find, and imports nothing of it: the host layers it needs (`io/`,
 
 Layering:
     cli        — `python -m genomicsbench_tpu_torch <subcommand>`
-    io/        — host-side loaders (pair and anchor-call text formats)
+    io/        — host-side loaders (pair, anchor-call and phmm text formats,
+                 FASTA/Q, plink, fast5, signals) and the BAM writer and
+                 readers: the whole file, or a region through its .bai
+                 (`IndexedBam`), with the FASTA index
     batching/  — length bucketing
-    ops/       — device paths: a plain PyTorch version beside each kernel
+    ops/       — device paths: a plain PyTorch version beside each kernel;
+                 pileup and dbg are host code over native/ with their
+                 device sorts on torch.sort
     csrc/      — the hand-written CUDA kernels, built by `_kernels.py`
+    native/    — the host library (C++ with ctypes, built by g++ at first
+                 use): peaks, poa, SA-IS, PSR9, CTC, BAM parse, pileup, dbg
     oracle/    — NumPy scalar reference semantics (a second witness)
 
 Every entry point runs on `cuda` unless the caller passes `device="cpu"`;

@@ -11,7 +11,8 @@ format.
 Subcommands: fmi, bsw, phmm, chain, poa, eventalign (event space, or
 reference coordinates with -b/-g, or event-space records with --sam),
 call-methylation (event space, or on the genome with -b/-g), kmer-cnt,
-nn-base, grm, and the host-only meth-freq, index and freq-merge.
+nn-base, grm, and the host-only pileup, dbg, meth-freq, index and
+freq-merge.
 """
 
 from __future__ import annotations
@@ -344,10 +345,62 @@ def cmd_eventalign(args):
           f"Data processing time: {dt:.3f} sec", file=sys.stderr)
 
 
+def _open_region_bam(path):
+    """The reader of the region subcommands (pileup, dbg), as the JAX
+    package's CLI opens it (JAX cli.py:29-38): an IndexedBam when a .bai sits
+    beside the file (only the region's blocks are inflated), else the whole
+    file."""
+    import os
+
+    from genomicsbench_tpu_torch.io.bam import IndexedBam, read_bam
+
+    if os.path.exists(path + ".bai"):
+        return IndexedBam(path)
+    return read_bam(path)
+
+
+def cmd_pileup(args):
+    """pileup <bam> <region> [threads] [dtypes...] (medaka_counts.c:487): the
+    counts matrix, printed with --print-output as print_pileup_data does,
+    and the timing line on stderr.  As the JAX package's CLI, it passes
+    num_dtypes = len(dtypes) and no dtype_of, so every count lands in dtype
+    plane 0.  Host code."""
+    from genomicsbench_tpu_torch.ops.pileup import pileup_counts
+
+    bam = _open_region_bam(args.bam)
+    t0 = time.perf_counter()
+    res = pileup_counts(bam, args.region, num_dtypes=max(1, len(args.dtypes)),
+                        num_homop=args.num_homop)
+    dt = time.perf_counter() - t0
+    if args.print_output:
+        sys.stdout.write(res.text())
+    print(f"Kernel runtime: {dt:.2f} s", file=sys.stderr)
+
+
+def cmd_dbg(args):
+    """dbg file.bam chr:start-stop ref.fa [threads] (debruijn.cpp:1442): the
+    region's window graphs by the host library's build (the reference's ROI
+    is build and destroy, debruijn.cpp:1429, so the array dicts are its
+    product), and the timing line with the window and node counts."""
+    from genomicsbench_tpu_torch.io.bam import FastaIndex
+    from genomicsbench_tpu_torch.ops.dbg import dbg_from_bam
+
+    bam = _open_region_bam(args.bam)
+    fa = FastaIndex(args.ref)
+    chrom, se = args.region.rsplit(":", 1)
+    beg, end = (int(x) for x in se.split("-"))
+    t0 = time.perf_counter()
+    graphs = dbg_from_bam(bam, fa, chrom, beg, end, as_arrays=True)
+    dt = time.perf_counter() - t0
+    nodes = sum(len(g["node_keys"]) for g in graphs)
+    print(f"Kernel runtime: {dt:.2f} s  windows: {len(graphs)} nodes: {nodes}", file=sys.stderr)
+
+
 def _open_bam(path):
-    """The whole BAM, record by record.  A .bai beside it changes nothing:
-    the JAX package's indexed reader (IndexedBam) gives the same records in
-    the same order."""
+    """The whole BAM, record by record, whether or not a .bai sits beside
+    it: the reference-mode walk needs every record in file order, which the
+    JAX package's IndexedBam does not offer (with a .bai the JAX CLI's -b/-g
+    raises TypeError)."""
     from genomicsbench_tpu_torch.io.bam import read_bam
 
     return read_bam(path)
@@ -684,6 +737,25 @@ def build_parser():
     s.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     s.set_defaults(fn=cmd_grm)
+
+    s = sub.add_parser("pileup", help="pileup counts matrix")
+    s.add_argument("bam")
+    s.add_argument("region")
+    s.add_argument("n_threads", type=int, nargs="?", default=1,
+                   help="accepted for run-cpu.sh parity (ignored); "
+                        "medaka_counts.c:487 usage <bam> <region> <threads>")
+    s.add_argument("dtypes", nargs="*", default=[])
+    s.add_argument("--num-homop", type=int, default=5)  # medaka_counts.c:503
+    s.add_argument("--print-output", action="store_true")
+    s.set_defaults(fn=cmd_pileup)
+
+    s = sub.add_parser("dbg", help="de Bruijn graph construction")
+    s.add_argument("bam")
+    s.add_argument("region")
+    s.add_argument("ref")
+    s.add_argument("n_threads", type=int, nargs="?", default=1,
+                   help="accepted for run-cpu.sh parity (ignored)")
+    s.set_defaults(fn=cmd_dbg)
 
     s = sub.add_parser("meth-freq", help="methylation frequency aggregation")
     s.add_argument("-i", "--input", required=True)

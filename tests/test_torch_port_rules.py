@@ -15,7 +15,8 @@
   k-mer or more than 256, events and reads outside the uploaded tables, a
   short flank table and unknown flags, with ValueError, before any launch.
 * The host library (native/peaks.cpp, native/poa.cpp, native/sais.cpp,
-  native/psr9.cpp and native/ctc.cpp, one library per source) is built
+  native/psr9.cpp, native/ctc.cpp, native/bam.cpp, native/pileup.cpp and
+  native/dbg.cpp, one library per source) is built
   into a temporary file
   and moved into place, so
   concurrent test workers never load half of it; the kernel build holds a
@@ -35,6 +36,13 @@
   banded NW wrappers refuse wrong dtypes, shapes, devices and contiguity, a
   band outside 1..8,192 and an end cell outside the band, before any
   launch.
+* The device stages of pileup and dbg (`_count_keys`,
+  `_build_window_graphs_sorted`, `build_window_graphs` and `dbg_from_bam`
+  without as_arrays) raise without a card unless asked for the CPU;
+  `_count_keys` refuses keys past the int32 key space and
+  `_device_sort_pairs` mismatched lengths, keys past 32 bits and window ids
+  outside [0, 2^31).  The pileup and dbg test files mask the JAX package's
+  native loader on every test.
 """
 
 import ast
@@ -81,6 +89,7 @@ PORT_FILES = sorted((ROOT / "genomicsbench_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "torch_fmi_cases.py", ROOT / "tests" / "torch_meth_cases.py",
     ROOT / "tests" / "torch_kmer_cases.py", ROOT / "tests" / "torch_basecaller_cases.py",
     ROOT / "tests" / "torch_grm_cases.py", ROOT / "tests" / "torch_longread_cases.py",
+    ROOT / "tests" / "torch_pileup_cases.py", ROOT / "tests" / "torch_dbg_cases.py",
 ]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "genomicsbench_tpu")
 
@@ -540,8 +549,8 @@ def test_native_build_replaces_a_temporary_file(tmp_path, monkeypatch):
     monkeypatch.setattr(native.subprocess, "run", run)
     monkeypatch.setattr(native.os, "replace", replace)
     libs = native.build()
-    assert sorted(libs) == ["ctc", "peaks", "poa", "psr9", "sais"]
-    assert [c[0] for c in calls] == ["cc", "replace"] * 5
+    assert sorted(libs) == ["bam", "ctc", "dbg", "peaks", "pileup", "poa", "psr9", "sais"]
+    assert [c[0] for c in calls] == ["cc", "replace"] * 8
     for k, (name, lib) in enumerate(libs.items()):
         assert lib == native.library_path(name) and lib.exists()
         cc, rep = calls[2 * k], calls[2 * k + 1]
@@ -1228,3 +1237,88 @@ def test_longread_wrapper_checks_inputs(fault, monkeypatch):
             call()
     assert int(ops.longread_nw(q, q, 16)) == 60
     assert ops.banded_nw(q.numpy(), q.numpy()[:53], 16, device="cpu") == 53 - 2 * 7
+
+
+def test_pileup_and_dbg_import_loads_no_jax():
+    code = ("import sys\n"
+            "import genomicsbench_tpu_torch.ops.pileup, genomicsbench_tpu_torch.ops.dbg\n"
+            "import genomicsbench_tpu_torch.oracle.dbg, genomicsbench_tpu_torch.io.bam\n"
+            "import genomicsbench_tpu_torch.native, genomicsbench_tpu_torch.cli\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import torch_pileup_cases, torch_dbg_cases\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'genomicsbench_tpu')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["count_keys", "sort_pairs", "graphs", "sorted", "from_bam"])
+def test_pileup_dbg_device_stages_raise_without_card(no_card, entry, tmp_path):
+    """The device stages raise without a card, whatever the size of their
+    input (the sort-pairs host cutoff included), and run on the CPU when
+    asked; the array routes never touch the card."""
+    from genomicsbench_tpu_torch.io.bam import IndexedBam
+    from genomicsbench_tpu_torch.ops import dbg, pileup
+    from torch_dbg_cases import FastaStub, bam_reads, edge_windows
+    from torch_pileup_cases import write_indexed
+
+    windows = edge_windows()["test_dbg"]
+    ref, recs = bam_reads(n_reads=200, region=6_000)
+    path = write_indexed(str(tmp_path / "x.bam"), recs, len(ref))
+    big = np.zeros(dbg.HOST_SORT_ABOVE + 1, np.int64)
+    dev_kw = lambda dev: {"device": dev[0]} if dev else {}          # noqa: E731
+    run = {
+        "count_keys": lambda *dev: pileup._count_keys(np.arange(300) % 7, **dev_kw(dev)),
+        "sort_pairs": lambda *dev: dbg._device_sort_pairs(big.astype(np.int32), big,
+                                                          **dev_kw(dev)),
+        "graphs": lambda *dev: dbg.build_window_graphs(windows, **dev_kw(dev)),
+        "sorted": lambda *dev: dbg._build_window_graphs_sorted(windows, as_arrays=True,
+                                                               **dev_kw(dev)),
+        "from_bam": lambda *dev: dbg.dbg_from_bam(IndexedBam(path), FastaStub(ref), "chr1",
+                                                  0, 3000, **dev_kw(dev)),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run("cuda:0")
+    run("cpu")
+    assert len(dbg.build_window_graphs(windows, as_arrays=True)) == 4
+    assert len(dbg.dbg_from_bam(IndexedBam(path), FastaStub(ref), "chr1", 0, 3000,
+                                as_arrays=True)) == 4
+
+
+@pytest.mark.parametrize("fault", ["key_space", "lengths", "key_bits", "window_ids", "sorted_k"])
+def test_pileup_dbg_stages_check_inputs(fault, monkeypatch):
+    """_count_keys and _device_sort_pairs refuse what they cannot sort,
+    before any upload."""
+    from genomicsbench_tpu_torch.ops import dbg, pileup
+
+    def no_sort(*a, **kw):
+        raise AssertionError("reached the sort")
+
+    monkeypatch.setattr(torch, "sort", no_sort)
+    keys = np.arange(10)
+    call = {
+        "key_space": lambda: pileup._count_keys(np.array([1, np.iinfo(np.int32).max]), "cpu"),
+        "lengths": lambda: dbg._device_sort_pairs(np.zeros(9, np.int32), keys, "cpu"),
+        "key_bits": lambda: dbg._device_sort_pairs(np.zeros(2, np.int32),
+                                                   np.array([0, 1 << 32]), "cpu"),
+        "window_ids": lambda: dbg._device_sort_pairs(np.array([0, 1 << 31]), keys[:2], "cpu"),
+        "sorted_k": lambda: dbg._build_window_graphs_sorted([], k=16, device="cpu"),
+    }[fault]
+    with pytest.raises(ValueError):
+        call()
+
+
+@pytest.mark.parametrize("name", ["test_torch_pileup.py", "test_torch_dbg.py"])
+def test_pileup_dbg_tests_mask_the_jax_native_loader(name):
+    """The pileup and dbg test files run every test under an autouse fixture
+    that patches genomicsbench_tpu.native._load to return None."""
+    source = (ROOT / "tests" / name).read_text()
+    if name == "test_torch_pileup.py":
+        assert ("@pytest.fixture(autouse=True)\ndef jax_native_masked(monkeypatch):\n"
+                "    monkeypatch.setattr(jax_native, \"_load\", lambda: None)") in source
+    else:
+        assert "from test_torch_pileup import jax_c, jax_native_masked, on_library" in source
