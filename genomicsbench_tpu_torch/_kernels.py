@@ -63,6 +63,7 @@ SOURCES = {
               "gb_kmer_sites": [_P] * 4 + [_L, _L, _I] + [_P] * 4}),
     "basecaller": (CSRC / "basecaller.cu",
                    {"gb_bc_depthwise": [_P, _P, _L] + [_I] * 5 + [_P, _P],
+                    "gb_bc_depthwise_layout": [_I, _I, _P],
                     "gb_bc_bn_act": [_P] * 4 + [_L, _I, _I, _P, _P],
                     "gb_bc_head": [_P, _P, _L, _I, _I, _P, _P]}),
     "grm": (CSRC / "grm.cu",

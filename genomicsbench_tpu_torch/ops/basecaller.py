@@ -11,8 +11,10 @@ PyTorch version beside it, which rounds where the kernel rounds.
 
 * `depthwise_conv` (gb_bc_depthwise): (B, T, C) bf16 through (k, C) bf16
   taps, padding k // 2 both sides, stride s; the taps summed in increasing
-  order in f32 from 0 without FMA, rounded once to bf16.  The kernel and
-  the plain version agree bit for bit.
+  order in f32 from +0, rounded once to bf16.  The kernel fuses each tap
+  into an FMA, the plain version multiplies and adds apart; they agree bit
+  for bit because a product of two bf16 values is exact in f32 (see
+  `depthwise_conv_reference`).
 * `bn_act` (gb_bc_bn_act): eval BatchNorm `(x - mean) * factor + bias` in
   f32 from the bf16 conv output, optionally plus a second bf16 input
   through its own BatchNorm, optionally Swish `y * sigmoid(y)`, written as
@@ -41,10 +43,12 @@ from genomicsbench_tpu_torch._kernels import launch as _launch
 
 _BF16, _F32, _F16 = torch.bfloat16, torch.float32, torch.float16
 BN_EPS = 1e-5
-# gb_bc_depthwise's tiling (csrc/basecaller.cu): output frames and channels
-# per block; the block stages (DW_TILE - 1) * stride + k input rows and k
-# taps of DW_SLAB bf16 channels in shared memory
-DW_TILE, DW_SLAB = 256, 64
+# gb_bc_depthwise's tiling (csrc/basecaller.cu): output frames per item and
+# channels per block; a block stages, in each of at least two buffers,
+# (DW_TILE - 1) * stride + kc + 1 input rows of DW_SLAB bf16 channels (at
+# stride 1 with a pad row after every 16), and kc taps as f32 (once, or one
+# chunk per buffer where kc < k), kc at most DW_TAP_CHUNK
+DW_TILE, DW_SLAB, DW_TAP_CHUNK = 256, 32, 128
 SHARED_MAX = 232_448            # bytes of shared memory a Hopper block can opt in to
 HEAD_MAX_LABELS = 8
 HEAD_SHARED_MAX = 48 * 1024     # the head's f32 weights, without the opt-in
@@ -55,9 +59,28 @@ def depthwise_out_len(T: int, k: int, stride: int) -> int:
     return max((T + 2 * (k // 2) - k) // stride + 1, 0)
 
 
+def _dw_bytes(kc: int, k: int, stride: int) -> int:
+    rows = (DW_TILE - 1) * stride + kc
+    if stride == 1:
+        rows += rows >> 4
+    return 2 * (rows + 1) * DW_SLAB * 2 + (1 if kc == k else 2) * kc * DW_SLAB * 4
+
+
+def depthwise_tap_chunk(k: int, stride: int) -> int:
+    """The taps a gb_bc_depthwise block stages at once: all k up to
+    DW_TAP_CHUNK, fewer where the stride's rows leave no room; 0 where not
+    even one tap fits (csrc/basecaller.cu `dw_tap_chunk`)."""
+    for kc in range(min(k, DW_TAP_CHUNK), 0, -1):
+        if _dw_bytes(kc, k, stride) <= SHARED_MAX:
+            return kc
+    return 0
+
+
 def depthwise_shared_bytes(k: int, stride: int) -> int:
-    """The shared memory of one gb_bc_depthwise block."""
-    return ((DW_TILE - 1) * stride + 2 * k) * DW_SLAB * 2
+    """The least shared memory of one gb_bc_depthwise block, at two buffers
+    (at one tap a stage where no chunk fits, which is then more than
+    SHARED_MAX).  The kernel adds buffers where two blocks an SM still fit."""
+    return _dw_bytes(depthwise_tap_chunk(k, stride) or 1, k, stride)
 
 
 # ------------------------------------------------------------ depthwise conv
@@ -72,15 +95,23 @@ def _check_depthwise(x, w, stride):
         raise ValueError(f"the depthwise conv takes an even channel count, got {C}")
     if k < 1 or stride < 1:
         raise ValueError(f"k and stride must be positive, got k {k}, stride {stride}")
-    if depthwise_shared_bytes(k, stride) > SHARED_MAX:
-        raise ValueError(f"k {k} at stride {stride} needs "
-                         f"{depthwise_shared_bytes(k, stride)} bytes of shared memory, "
-                         f"more than the {SHARED_MAX} a block can have")
+    if not depthwise_tap_chunk(k, stride):
+        raise ValueError(f"stride {stride} needs {depthwise_shared_bytes(k, stride)} bytes of "
+                         f"shared memory for even one of the {k} taps, more than the "
+                         f"{SHARED_MAX} a block can have")
 
 
 def depthwise_conv_reference(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """The plain version of gb_bc_depthwise: the taps in increasing order,
-    one f32 multiply and one f32 add each, rounded once to bf16."""
+    one f32 multiply and one f32 add each from +0, rounded once to bf16.
+
+    The kernel computes each tap as fmaf(x, w, acc), rounding once where
+    this rounds twice.  The two agree bit for bit: a bf16 value has 8
+    significant bits, so the product of two has at most 16 and is exact in
+    f32, and round(acc + x * w) is then the same either way.  They can
+    differ only where a product is not exact: below 2^-134 in magnitude,
+    past the last bit of f32's subnormal grid (2^-149), or past f32's range
+    (tests/test_torch_basecaller.py `test_bf16_products_exact_in_f32`)."""
     B, T, C = x.shape
     k = w.shape[0]
     p = k // 2

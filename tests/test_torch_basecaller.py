@@ -163,6 +163,79 @@ def test_depthwise_plain_matches_jax(k, C, stride, T_len):
     assert_sums_close(got, want, k, scale, f"depthwise k {k} C {C}", 1e-3)
 
 
+def _bf16_values(bits):
+    return torch.from_numpy(np.asarray(bits, np.uint16).view(np.int16)).view(_BF16).double()
+
+
+def test_bf16_products_exact_in_f32():
+    """What licenses gb_bc_depthwise's FMA: fmaf(x, w, acc) equals the plain
+    version's round(acc + round(x * w)) wherever the f32 product of two bf16
+    values is exact.  For every pair of bf16 significands with sign (256 x
+    256), at exponent sums across f32's range down past its subnormal edge,
+    and for every bf16 subnormal against those significands, the f32
+    product equals the float64 one wherever |x * w| >= 2^-134: a product of
+    two 8-bit significands has at most 16 bits, whose last then lies on or
+    above f32's last subnormal bit, 2^-149.  Below 2^-134 exactness stops."""
+    sig = np.arange(256)
+    normal = _bf16_values(((sig >> 7) << 15) | (127 << 7) | (sig & 127))   # +-[1, 2)
+    sub = _bf16_values(((sig >> 7) << 15) | (sig & 127))                   # +-m * 2^-133
+    edge, inexact = 2.0 ** -134, []
+    cases = [(normal * 2.0 ** (e // 2), normal * 2.0 ** (e - e // 2)) for e in range(-152, 127)]
+    cases += [(sub, normal * 2.0 ** e) for e in range(-24, 128)]
+    for a, b in cases:
+        a, b = a.to(_BF16).double()[:, None], b.to(_BF16).double()[None, :]
+        p64 = a * b
+        p32 = (a.float() * b.float()).double()
+        assert torch.isfinite(p32).all()
+        big = p64.abs() >= edge
+        assert torch.equal(p32[big], p64[big])
+        inexact.append(p64[p32 != p64].abs())
+    inexact = torch.cat(inexact)
+    # where it stops: products just under the edge already round
+    assert inexact.numel() and float(inexact.max()) < edge <= 2 * float(inexact.max())
+
+
+def _reciprocal_past_2_120(s):
+    """csrc/basecaller.cu `reciprocal` past s = 2^120, step for step in
+    numpy float32 (round to nearest, subnormals kept): 1 / s from the
+    reciprocal of s * 2^-64, with the exact remainder's sign (from float64,
+    where the product of two f32 values is exact) settling a tie of the
+    last rounding."""
+    f32 = np.float32
+    inf = np.isinf(s)
+    t = np.where(inf, f32(1), s * f32(2.0 ** -64)).astype(f32)
+    q = (f32(1) / t).astype(f32)
+    e = 1.0 - t.astype(np.float64) * q.astype(np.float64)
+    r = (q * f32(2.0 ** -64)).astype(f32)
+    d = (q - r * f32(2.0 ** 64)).astype(f32)
+    tie = np.abs(d) == f32(2.0 ** -86)
+    bits = r.view(np.uint32).copy()
+    bits[tie & (d > 0) & (e > 0)] += 1
+    bits[tie & (d < 0) & (e < 0)] -= 1
+    return np.where(inf, f32(0), bits.view(f32)), tie
+
+
+def test_swish_reciprocal_past_2_120_exact():
+    """What licenses gb_bc_bn_act's Swish past 1 + e^-y = 2^120: for every
+    float32 s from 2^120 to inf (67,108,865 values) the scaled reciprocal
+    with its tie step equals 1 / s rounded once, as the f32 division gives
+    it; without the step the second rounding misses at some ties."""
+    lo = int(np.float32(2.0 ** 120).view(np.uint32))
+    hi = int(np.float32(np.inf).view(np.uint32))
+    ties = wrong_unstepped = 0
+    with np.errstate(over="ignore", under="ignore"):
+        for a in range(lo, hi + 1, 1 << 22):
+            s = np.arange(a, min(a + (1 << 22), hi + 1), dtype=np.uint32).view(np.float32)
+            got, tie = _reciprocal_past_2_120(s)
+            want = (np.float32(1) / s).astype(np.float32)
+            assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), a
+            unstepped = (np.float32(1) / (s * np.float32(2.0 ** -64))) * np.float32(2.0 ** -64)
+            unstepped = np.where(np.isinf(s), np.float32(0), unstepped).astype(np.float32)
+            ties += int(tie.sum())
+            wrong_unstepped += int((unstepped.view(np.uint32) != want.view(np.uint32)).sum())
+    assert ties and wrong_unstepped
+
+
 def _bn_rows(p):
     return ops.bn_params(*(to_torch(p[n]) for n in ("scale", "bias", "mean", "var")))
 

@@ -58,6 +58,104 @@ def test_depthwise_kernel_equals_plain(card, k, C, T_len):
         assert torch.equal(got.view(torch.int16), want.view(torch.int16)), (k, C, T_len, stride)
 
 
+def _depthwise_equal(card, B, T_len, C, k, stride, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(B, T_len, C, device=card, generator=g).to(_BF16)
+    w = (torch.randn(k, C, device=card, generator=g) * (2.0 / k) ** 0.5).to(_BF16)
+    got = ops.depthwise_conv(x, w, stride)
+    want = ops.depthwise_conv_reference(x, w, stride)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, ops.depthwise_out_len(T_len, k, stride), C)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16)), (B, T_len, C, k, stride)
+
+
+@pytest.mark.parametrize("k", [123, 5])
+@pytest.mark.parametrize("T_len", [ops.DW_TILE - 1, ops.DW_TILE, ops.DW_TILE + 1])
+def test_depthwise_tile_edges(card, k, T_len):
+    """Sequences one frame short of a tile, a whole tile, one frame past."""
+    _depthwise_equal(card, 3, T_len, 464, k, 1, k + T_len)
+
+
+@pytest.mark.parametrize("stride", [1, 3])
+def test_depthwise_past_one_wave(card, stride):
+    """More (batch row, tile) items per slab than the card holds blocks, so
+    each block walks several items and double-buffers across them."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    B = 4 * sms + 3
+    _depthwise_equal(card, B, 3 * ops.DW_TILE * stride + 7, 136, 33, stride, B + stride)
+
+
+@pytest.mark.parametrize("k,stride", [(780, 1), (1_001, 1), (129, 1), (100, 7), (16, 7)])
+def test_depthwise_taps_in_chunks(card, k, stride):
+    """Taps past one chunk: k 780 (the largest the layout before chunks
+    held at stride 1), 1,001 and 129 at stride 1, and stride 7, where the
+    rows leave room for 10 taps a chunk."""
+    assert ops.depthwise_tap_chunk(k, stride) < k
+    _depthwise_equal(card, 2, 900, 72, k, stride, k)
+    with pytest.raises(ValueError):
+        ops.depthwise_conv(torch.zeros(1, 50, 64, dtype=_BF16, device=card),
+                           torch.zeros(k, 64, dtype=_BF16, device=card), stride=8)
+
+
+@pytest.mark.parametrize("C", [2, 6, 130, 464])
+@pytest.mark.parametrize("N", [1, 3, 1_001, 100_003])
+def test_epilogue_widths_and_rows(card, C, N):
+    """C 2, 6 and 130 take 2 channels a thread, 464 takes 8; N odd, so the
+    last step of a thread's two-row walk has one row."""
+    g = torch.Generator(device=card).manual_seed(C * 7 + N)
+    x = (torch.randn(N, C, device=card, generator=g) * 3).to(_BF16)
+    r = (torch.randn(N, C, device=card, generator=g) * 3).to(_BF16)
+    p = ops.bn_params(*(torch.rand(C, device=card, generator=g) + 0.5 for _ in range(4)))
+    pr = ops.bn_params(*(torch.rand(C, device=card, generator=g) + 0.5 for _ in range(4)))
+    for res, swish in (((None, None), True), ((r, pr), True), ((None, None), False)):
+        got = ops.bn_act(x, p, *res, swish=swish)
+        want = ops.bn_act_reference(x, p, *res, swish=swish)
+        torch.cuda.synchronize()
+        assert int(ulps(got, want).max()) <= (1 if swish else 0), (C, N, swish)
+
+
+def test_epilogue_unaligned_rows(card):
+    """A C of 464 whose tensors start 4 bytes past a 16-byte boundary: the
+    2-channel width, equal to the 8-channel width's output."""
+    g = torch.Generator(device=card).manual_seed(11)
+    flat = (torch.randn(1_001 * 464 + 2, device=card, generator=g) * 3).to(_BF16)
+    x = flat[2:].view(1_001, 464)
+    assert x.data_ptr() % 16 == 4
+    p = ops.bn_params(*(torch.rand(464, device=card, generator=g) + 0.5 for _ in range(4)))
+    got = ops.bn_act(x, p)
+    aligned = ops.bn_act(x.clone(), p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aligned)
+    assert int(ulps(got, ops.bn_act_reference(x, p)).max()) <= 1
+
+
+@pytest.mark.parametrize("C", [464, 6])
+def test_epilogue_swish_far_below_zero(card, C):
+    """Pre-Swish values y from -200 to 100, dense between -90 and -80 (each
+    channel scales the bf16 inputs by its own f32 factor), and inputs of
+    -1e4 and -3e38: where 1 + e^-y reaches 2^120 the kernel takes the
+    sigmoid's reciprocal without the f32 division's slow path.  Its output
+    equals y * (1 / (1 + exp(-y))) with the reciprocal rounded once to f32
+    (in torch: exp in f32, the reciprocal in f64 rounded to f32, which is
+    the f32 reciprocal rounded once) bit for bit, and is within one ulp of
+    the plain version."""
+    g = torch.Generator(device=card).manual_seed(C)
+    near = torch.arange(0xC2A0, 0xC2B5, dtype=torch.int32).to(torch.int16).view(_BF16)
+    x = torch.cat([near.float(), torch.linspace(-200, 100, 20_000),
+                   torch.tensor([-1e4, -3e38, 0.0, -0.0])]).to(_BF16).to(card).repeat(11)
+    x = x[:len(x) // C * C].view(-1, C)
+    p = torch.stack([torch.zeros(C, device=card),
+                     0.9 + 0.2 * torch.rand(C, device=card, generator=g),
+                     torch.zeros(C, device=card)])
+    got = ops.bn_act(x, p)
+    y = (x.float() - p[0]) * p[1] + p[2]
+    want = (y * (1.0 / (1.0 + torch.exp(-y)).double()).float()).to(_BF16)
+    torch.cuda.synchronize()
+    assert int((y < -83).sum()) > 1_000
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert int(ulps(got, ops.bn_act_reference(x, p)).max()) <= 1
+
+
 @pytest.mark.parametrize("mode", ["swish", "plain", "residual"])
 @pytest.mark.parametrize("C", [344, 464, 48])
 def test_epilogue_within_one_ulp(card, mode, C):

@@ -1064,11 +1064,19 @@ def test_nn_base_wrappers_check_inputs(fault, monkeypatch):
         calls = [lambda: ops.depthwise_conv(x.transpose(0, 1), w),
                  lambda: ops.bn_act(x[:, ::2], p)]
     elif fault == "k_too_large":
-        big = torch.zeros(800, 64, dtype=bf)     # 800 taps: past 227 KB
-        assert ops.depthwise_shared_bytes(780, 1) <= ops.SHARED_MAX < \
-            ops.depthwise_shared_bytes(781, 1)
-        calls = [lambda: ops.depthwise_conv(x, big),
-                 lambda: ops.depthwise_conv(x, torch.zeros(600, 64, dtype=bf), stride=3)]
+        # the kernel stages taps past DW_TAP_CHUNK in chunks, so no k is too
+        # large at a stride whose rows for one tap fit in 227 KB (7 and
+        # below; the layout before chunks held k <= 780 at stride 1), and
+        # none is small enough past it
+        big = torch.zeros(800, 64, dtype=bf)
+        for k in (780, 781, 100_000):
+            assert ops.depthwise_tap_chunk(k, 1) == ops.DW_TAP_CHUNK
+            assert ops.depthwise_shared_bytes(k, 7) <= ops.SHARED_MAX
+        assert ops.depthwise_tap_chunk(1, 8) == 0
+        assert ops.depthwise_shared_bytes(1, 8) > ops.SHARED_MAX
+        assert ops.depthwise_conv(x, big).shape == (2, 41, 64)      # even k: T + 1
+        calls = [lambda: ops.depthwise_conv(x, big, stride=8),
+                 lambda: ops.depthwise_conv(x, torch.zeros(600, 64, dtype=bf), stride=9)]
     elif fault == "stride":
         calls = [lambda: ops.depthwise_conv(x, w, stride=0)]
     elif fault == "bn_shape":
