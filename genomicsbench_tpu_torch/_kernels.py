@@ -47,7 +47,8 @@ SOURCES = {
              {"gb_abea_fill": [_P] * 7 + [_L] + [_P] * 6,
               "gb_abea_backtrack": [_P] * 11 + [_L] + [_P] * 2}),
     "poa": (CSRC / "poa.cu",
-            {"gb_poa_fill": [_P] * 7 + [_L] + [_I] * 11 + [_P] * 7,
+            {"gb_poa_fill": [_P] * 7 + [_L] + [_I] * 12 + [_P] * 7,
+             "gb_poa_fill_occupancy": [_I] * 5 + [_P],
              "gb_poa_backtrack": [_P] * 5 + [_L] + [_I] * 5 + [_P] * 3}),
     "fmi": (CSRC / "fmi.cu",
             {"gb_fmi_smem1": [_P, _P, _I] + [_P] * 4 + [_L] + [_I] * 10 + [_P] * 2,
@@ -70,7 +71,7 @@ SOURCES = {
             {"gb_grm_standardize": [_P, _P, _L, _I, _P, _P, _P],
              "gb_grm_finish": [_P, _P, _I, _I, _P, _P]}),
     "longread": (CSRC / "longread.cu",
-                 {"gb_longread_nw": [_P, _P] + [_I] * 6 + [_P, _P]}),
+                 {"gb_longread_nw": [_P, _P] + [_I] * 6 + [_P] * 3}),
 }
 
 _lock = threading.Lock()

@@ -3,10 +3,12 @@
 The port of genomicsbench_tpu/ops/longread.py on one device.  The JAX
 package's `sharded_banded_nw` (:83-154) keeps one read's banded DP on a
 whole mesh, the band split across devices with a one-lane `ppermute` halo
-and a cross-device prefix max each row.  On one H100 the whole band fits
-one thread block, so `banded_nw` is that function at D = 1: no halo, the
-left chain a cummax over the whole band.  The multi-card form, with the
-halo exchange on torch.distributed, waits for ROADMAP.md §1 item 5.
+and a cross-device prefix max each row.  `banded_nw` is that function at
+D = 1: no halo, the left chain a cummax over the whole band.  On the card
+the kernel recomputes the same recurrence in (target, query) coordinates,
+as a pipeline of warps over stripes of query columns (csrc/longread.cu),
+for any band width.  The multi-card form, with the halo exchange on
+torch.distributed, waits for ROADMAP.md §1 item 5.
 
 Semantics (the JAX package's): global Needleman-Wunsch with linear gaps,
 int32; lane k of target row i holds query position j = i + k - W // 2; per
@@ -22,7 +24,10 @@ oracle's score exactly.
 
 The inputs are int arrays and three ints, so nothing converts between the
 packages.  Where the end cell lies outside the band the JAX package fails
-an `assert` (:94); the port raises ValueError naming the band.
+an `assert` (:94); the port raises ValueError naming the band.  The kernel
+also needs every in-band score above NEG / 2, where the JAX thresholds
+hold, and int32 coordinates: it refuses reads and scores past those bounds
+(`check_kernel_range`).
 """
 
 from __future__ import annotations
@@ -36,13 +41,18 @@ from genomicsbench_tpu_torch._kernels import check_tensor as _check
 from genomicsbench_tpu_torch._kernels import launch as _launch
 
 NEG = -(1 << 30)
-MAX_BAND = 8192             # gb_longread_nw: 1,024 threads x 8 lanes each
+COORD_LIMIT = 1 << 30       # m + n + W: the kernel's int32 row and column arithmetic
+# int32 operations per band cell of the recurrence at its best form, for the
+# kernel's bound: the substitution (compare, select), the up move's
+# subtraction, two add-and-max (DPX), the band test (subtract, compare) and
+# its select
+LONGREAD_OPS_PER_CELL = 8
 _I32 = torch.int32
 
 
 def _check_band(m: int, n: int, band: int) -> None:
-    if not isinstance(band, (int, np.integer)) or not 1 <= band <= MAX_BAND:
-        raise ValueError(f"band must be an integer from 1 to {MAX_BAND}, got {band!r}")
+    if not isinstance(band, (int, np.integer)) or band < 1:
+        raise ValueError(f"band must be an integer of at least 1, got {band!r}")
     kend = m - n + band // 2
     if not 0 <= kend < band:
         raise ValueError(f"end cell outside the band: a query of {m} and a target of {n} "
@@ -56,6 +66,20 @@ def _check_inputs(query, target, band):
             raise ValueError(f"{name} holds {x.shape[0]} bases: at most 2^31 - 1")
     _check_device(query.device, target)
     _check_band(query.shape[0], target.shape[0], band)
+
+
+def check_kernel_range(m: int, n: int, band: int, match: int, mismatch: int, gap: int) -> None:
+    """Refuse what gb_longread_nw cannot hold exactly: m + n + W at or past
+    2^30 (its int32 coordinates), or scores that could bring an in-band cell
+    to NEG / 2, where the JAX thresholds would drop a real cell (every
+    in-band score is at least -(n + m) max(|s|, gap))."""
+    if m + n + band >= COORD_LIMIT:
+        raise ValueError(f"a query of {m}, a target of {n} and a band of {band} pass the "
+                         f"kernel's int32 coordinates (m + n + W < 2^30)")
+    worst = (m + n + band + 1) * max(abs(match), abs(mismatch), abs(gap))
+    if worst >= -NEG // 2:
+        raise ValueError(f"scores ({match}, {mismatch}, {gap}) over {m + n} bases could reach "
+                         "NEG / 2, where the JAX thresholds drop real cells")
 
 
 def longread_nw_reference(query: torch.Tensor, target: torch.Tensor, band: int, match: int = 1,
@@ -98,13 +122,18 @@ def longread_nw(query: torch.Tensor, target: torch.Tensor, band: int, match: int
     in a band of `band` lanes, as a (1,) int32 tensor on their device.
     Checks its inputs on the host before any build or launch (an end cell
     outside the band is a ValueError); CPU tensors take the plain version,
-    CUDA tensors one launch on the current stream, without synchronising."""
+    CUDA tensors one launch on the current stream, without synchronising
+    (after `check_kernel_range`)."""
     _check_inputs(query, target, band)
     if query.device.type == "cpu":
         return longread_nw_reference(query, target, band, match, mismatch, gap)
+    m, n = query.shape[0], target.shape[0]
+    check_kernel_range(m, n, band, match, mismatch, gap)
     out = torch.empty(1, dtype=_I32, device=query.device)
-    _launch(query.device, "gb_longread_nw", query.data_ptr(), target.data_ptr(), query.shape[0],
-            target.shape[0], band, match, mismatch, gap, out.data_ptr())
+    # the stripe counter, then one (value, tag) hand-off word per target row
+    scratch = torch.zeros(n + 2, dtype=torch.int64, device=query.device)
+    _launch(query.device, "gb_longread_nw", query.data_ptr(), target.data_ptr(), m, n, band,
+            match, mismatch, gap, scratch.data_ptr(), out.data_ptr())
     longread_nw.launches += 1
     return out
 

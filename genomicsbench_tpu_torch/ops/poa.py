@@ -18,9 +18,9 @@ uploaded buffer (`PoaTables`), each in two versions:
   topological order (JAX `_poa_dp_core`, ops/poa.py:264-385), writing one
   packed uint16 trace cell per (node, column) and the best sink at column
   qlen; on the card the hand-written kernel `gb_poa_fill` of `csrc/poa.cu`
-  (one block per window, threads across the query columns), on the CPU
-  `poa_fill_reference`, JAX's row step over (B, P, q_pad) tensors with one
-  host loop over the rows;
+  (one block per window, two query columns a thread, the last `ring_depth`
+  rows in shared memory), on the CPU `poa_fill_reference`, JAX's row step
+  over (B, P, q_pad) tensors with one host loop over the rows;
 * `poa_backtrack`: the walk back over the traces (JAX `_backtrack_batch`,
   :414-505) to path entries `rank*(q_pad+1) + jcode` or, when p_pad <= 7,
   a 4-bit code stream packed eight to a word; on the card
@@ -36,7 +36,8 @@ taken in closed form, as JAX does, by a running max over a key that packs
 (value, smallest column): JAX packs into int32 as value*(q_pad+1) + q_pad-k,
 which wraps past qlen when q_pad + 1 > 4,096; here the key is the int64
 value*2^14 + (2^14-1-k), which orders the same on every column that is
-read and never wraps.
+read and never wraps (the kernel packs it into int32 with 2^11 where q_pad
+<= 2,048).
 """
 
 from __future__ import annotations
@@ -60,6 +61,9 @@ N_PAD_LIMIT = 0xFFFF              # uint16 pred ranks with the 0xFFFF sentinel
 NO_PRED = 0xFFFF
 CODES_MAX_P_PAD = 7               # 4-bit codes need 2 * p_pad < 16
 FILL_THREADS_MAX = 512
+FILL_COLS_PER_THREAD = 2
+RING_BYTES = 100 * 1024           # gb_poa_fill's shared ring of H, F1, F2 rows
+RING_MAX = 32
 # int32 operations of the kernels (csrc/poa.cu), for their bounds: the fill's
 # per predecessor slot and per DP cell, the backtrack's per walk step
 POA_INT32_OPS_PER_SLOT = 14
@@ -534,9 +538,39 @@ def poa_fill_reference(t: PoaTables, params: PoaParams) -> FillResult:
 
 def fill_threads(q_max: int) -> int:
     """Threads per block of the fill kernel: the widest window's qlen + 1
-    columns in whole warps, at most FILL_THREADS_MAX (wider windows take
-    several tiles of columns per row)."""
-    return min(FILL_THREADS_MAX, _round_up(q_max + 1, 32))
+    columns, two a thread, in whole warps, at most FILL_THREADS_MAX (wider
+    windows take several tiles of columns per row)."""
+    return min(FILL_THREADS_MAX, _round_up(-(-(q_max + 1) // FILL_COLS_PER_THREAD), 32))
+
+
+def ring_depth(q_pad: int) -> int:
+    """Rows of H, F1 and F2 the fill kernel keeps in shared memory: the
+    largest power of two, at most RING_MAX (narrow windows' predecessors
+    lie a few ranks back, and a smaller ring leaves room for more blocks an
+    SM), whose rows (12 bytes a column over q_pad + 1 columns, rounded up to
+    even, and two guard columns) fit in RING_BYTES.  8 at q_pad 1,024, so two blocks share an SM; 1 past q_pad
+    4,096, where every predecessor row comes from the device scratch."""
+    row = 12 * (_round_up(q_pad + 1, 2) + 2)
+    r = 1
+    while 2 * r <= RING_MAX and 2 * r * row <= RING_BYTES:
+        r *= 2
+    return r
+
+
+def far_rows(predp, n, ring: int) -> tuple[int, int]:
+    """(ranks read from beyond the ring, ranks) over a slab's windows: the
+    rows the fill kernel writes to its device scratch, by the rule the
+    kernel applies (node rank r0 + 1 reads predecessor pv from the scratch
+    where r0 + 1 - pv >= ring), and every window's n + 1 ranks."""
+    predp = np.asarray(predp)
+    n = np.asarray(n, np.int64)
+    far = 0
+    for b in range(predp.shape[0]):
+        pv = predp[b, :n[b]].astype(np.int64)
+        rank = np.arange(1, n[b] + 1, dtype=np.int64)[:, None]
+        hit = (pv != NO_PRED) & (rank - pv >= ring)
+        far += np.unique(pv[hit]).size
+    return far, int((n + 1).sum())
 
 
 def poa_fill(t: PoaTables, params: PoaParams | None = None) -> FillResult:
@@ -544,7 +578,8 @@ def poa_fill(t: PoaTables, params: PoaParams | None = None) -> FillResult:
 
     Checks the tables on the host before any build or launch.  CPU tables
     take the plain version; CUDA tables launch the kernel once on the
-    current stream, without synchronising, with the H/F1/F2 rows in a
+    current stream, without synchronising, with the last `ring_depth(q_pad)`
+    H/F1/F2 rows in shared memory and the rows read from beyond them in a
     device scratch of 12 bytes per (node + 1) x (qlen + 1) cell, and raise
     if the launch fails."""
     params = _check_params(params or PoaParams())
@@ -573,7 +608,7 @@ def poa_fill(t: PoaTables, params: PoaParams | None = None) -> FillResult:
             t.qlen.data_ptr(), t.cell_off.data_ptr(), t.trace_off.data_ptr(), B,
             t.n_pad, t.p_pad, t.q_pad, col0_gap_origin(t.q_pad), p.match, p.mismatch,
             -p.gap_open1, -p.gap_ext1, -p.gap_open2, -p.gap_ext2,
-            fill_threads(int(np.asarray(t.host["qlen"]).max())),
+            fill_threads(int(np.asarray(t.host["qlen"]).max())), ring_depth(t.q_pad),
             scratch.data_ptr(), scratch[cells:].data_ptr(), scratch[2 * cells:].data_ptr(),
             f.trace.data_ptr(), f.score.data_ptr(), f.best_rank.data_ptr(), stream)
     if rc != 0:

@@ -22,13 +22,14 @@ from genomicsbench_tpu.parallel.mesh import make_mesh
 import genomicsbench_tpu_torch.ops.longread as T
 from genomicsbench_tpu_torch.oracle.longread import banded_nw_oracle
 
-from torch_longread_cases import edge_cases, outside_band
+from torch_longread_cases import band_binds, edge_cases, outside_band
 
 # pytest-xdist runs several workers on the CPU's cores; torch's own thread
 # pool in each would oversubscribe them
 torch.set_num_threads(1)
 
 CASES = edge_cases()
+BINDS = band_binds()
 
 
 @pytest.fixture(scope="module")
@@ -83,3 +84,26 @@ def test_end_cell_outside_the_band(meshes):
         sharded_banded_nw(meshes[0], q, t, W)
     with pytest.raises(ValueError, match="outside the band"):
         T.banded_nw(q[:10], t, W, device="cpu")       # the other side
+
+
+@pytest.mark.parametrize("case", sorted(BINDS))
+def test_band_binds_matches_jax_and_oracle(case, meshes):
+    """Where the band cuts off the best path (and, with gaps cheaper than a
+    mismatch, a path around the band's edge would win), the plain version
+    equals JAX on one device and the oracle."""
+    q, t, W, scores = BINDS[case]
+    want = banded_nw_oracle(q, t, W, *scores)
+    assert want is not None
+    assert T.banded_nw(q, t, W, *scores, device="cpu") == want
+    assert sharded_banded_nw(meshes[1], q, t, W, *scores) == want
+
+
+def test_kernel_range_refusals():
+    """The kernel's exactness bounds: int32 coordinates, and scores that
+    keep every in-band cell above NEG / 2; the main read passes both."""
+    T.check_kernel_range(100_000, 100_000, 2_048, 1, -1, 2)
+    T.check_kernel_range(0, 0, 1, 10**6, -10**6, 10**6)
+    with pytest.raises(ValueError, match="int32 coordinates"):
+        T.check_kernel_range(1 << 29, 1 << 29, 16, 1, -1, 2)
+    with pytest.raises(ValueError, match="NEG / 2"):
+        T.check_kernel_range(300, 300, 128, 10**6, -10**6, 10**6)

@@ -89,6 +89,53 @@ def test_plain_versions_match_jax_on_random_dags(max_indeg, params):
     assert forms == ([False, True] if p_pad <= 7 else [False])
 
 
+@pytest.mark.parametrize("params", sorted(PARAMS))
+def test_plain_versions_match_jax_with_empty_slots_first(params):
+    """Slot 0 empty ahead of the live predecessors on every row: at column 0
+    a live diagonal is NEG + mismatch, below the empty slot's NEG, so the
+    first maximal slot is the empty one in JAX's masked argmax too."""
+    rng = np.random.default_rng(9)
+    dags = [cases.random_dag(rng, 40, 2, 60), cases.random_dag(rng, 25, 2, 0)]
+    pads = (256, 4, 128)
+    basep, predp, n, seq, qlen = cases.dag_planes(dags, *pads)
+    shifted = np.full_like(predp, poa.NO_PRED)
+    shifted[:, :, 1:] = predp[:, :, :-1]
+    _check_against_jax((basep, shifted, n, seq, qlen), pads, PARAMS[params])
+
+
+@pytest.mark.parametrize("dist", [7, 8, 9])
+def test_plain_versions_match_jax_at_ring_distances(dist):
+    """tests/torch_poa_cases.py's distance_dag planes (a predecessor exactly
+    `dist` ranks back, around the kernel's ring of 8 rows) are planes both
+    packages take."""
+    rng = np.random.default_rng(dist)
+    dags = [cases.distance_dag(rng, 40, [dist], 100), cases.distance_dag(rng, 12, [dist], 7)]
+    pads = (256, 2, 128)
+    _check_against_jax(cases.dag_planes(dags, *pads), pads, ALT)
+
+
+def test_ring_depth_and_far_rows():
+    """The fill kernel's ring: 8 rows at q_pad 1,024 (two blocks an SM), 1
+    past 4,096, within RING_BYTES and RING_MAX; far_rows counts the ranks a
+    node reads from beyond the ring, each once."""
+    assert [poa.ring_depth(q) for q in (128, 256, 640, 1024, 2048, 2176, 4096, 5120, 8064)] \
+        == [32, 32, 8, 8, 4, 2, 2, 1, 1]
+    for q in range(128, 8192, 128):
+        r = poa.ring_depth(q)
+        assert r & (r - 1) == 0 and 1 <= r <= poa.RING_MAX
+        assert r == 1 or 12 * r * (q + 4) <= poa.RING_BYTES
+    assert [poa.fill_threads(q) for q in (0, 63, 64, 999, 1023, 5000)] == [32, 32, 64, 512,
+                                                                          512, 512]
+    rng = np.random.default_rng(2)
+    dags = [cases.distance_dag(rng, 50, [d], 10) for d in (7, 8, 9)]
+    _, predp, n, _, _ = cases.dag_planes(dags, 256, 2, 128)
+    for ring in (1, 4, 8, 16):
+        want = 0
+        for b, (_, preds, _) in enumerate(dags):
+            want += len({pv for r0, p in enumerate(preds) for pv in p if r0 + 1 - pv >= ring})
+        assert poa.far_rows(predp, n, ring) == (want, int(n.sum()) + len(dags))
+
+
 def test_plain_versions_match_jax_on_a_4000_base_window():
     """Two reads of about 4,000 bases: q_pad 4,096, where JAX's int32 key
     value*(q_pad+1) wraps past qlen; the port's int64 key must still give

@@ -85,7 +85,8 @@ def test_edge_windows_kernels_match_plain(card, label, monkeypatch):
 
 def test_bench_windows_match_poa_gold(card, tmp_path):
     """16 windows of the main path (bench_poa, seed 19): the consensus on
-    the card equals poa_gold's, with two launches per (round, slab)."""
+    the card equals poa_gold's, with one launch of each kernel per (round,
+    slab)."""
     windows = cases.bench_poa_windows(16)
     exe = cases.build_poa_gold(tmp_path)
     cases.write_windows_fasta(tmp_path / "w.fa", windows)
@@ -97,3 +98,60 @@ def test_bench_windows_match_poa_gold(card, tmp_path):
     assert stats["calls"] == 9 * 2
     assert (poa.poa_fill.launches - before[0], poa.poa_backtrack.launches - before[1]) \
         == (stats["calls"], stats["calls"])
+
+
+# q_pad -> the ring depth the wrapper picks there (ops/poa.py ring_depth)
+RING_AT = {256: 32, 1024: 8, 2048: 4, 4096: 2, 5120: 1}
+
+
+@pytest.mark.parametrize("q_pad", sorted(RING_AT))
+@pytest.mark.parametrize("dist", ["R-1", "R", "R+1"])
+def test_ring_edges(card, q_pad, dist):
+    """Predecessors exactly R - 1, R and R + 1 ranks back, at every ring
+    depth the wrapper picks: from the ring, and from the scratch, which
+    only the rows read from beyond the ring reach.  q_pad 4,096 and 5,120
+    take the int64 E keys, the others the int32 keys."""
+    R = poa.ring_depth(q_pad)
+    assert R == RING_AT[q_pad]
+    d = max(1, R + {"R-1": -1, "R": 0, "R+1": 1}[dist])
+    rng = np.random.default_rng(q_pad + d)
+    qlens = [q_pad - 1, q_pad // 2 + 1, 3]
+    dags = [cases.distance_dag(rng, 3 * R + 40, [d], ql) for ql in qlens]
+    planes = cases.dag_planes(dags, 256, 4, q_pad)
+    far, rows = poa.far_rows(planes[1], planes[2], R)
+    assert (far > 0) == (d >= R)
+    _kernels_vs_plain(poa.upload_windows(*planes, card), ALT)
+
+
+@pytest.mark.parametrize("q_pad", [2048, 2176])
+def test_key_routes(card, q_pad):
+    """The last q_pad of the int32 E key (columns to 2,047 in 11 bits) and
+    the first of the int64 key, each with a window at its widest query."""
+    rng = np.random.default_rng(q_pad)
+    dags = [cases.random_dag(rng, 30, 3, q_pad - 1), cases.random_dag(rng, 50, 3, 700)]
+    for params in (PoaParams(), ALT):
+        _kernels_vs_plain(poa.upload_windows(*cases.dag_planes(dags, 256, 4, q_pad), card),
+                          params)
+
+
+def test_empty_slot_before_a_valid_one(card):
+    """An empty slot ahead of a live predecessor: at column 0 the live
+    diagonal is NEG + mismatch, below the empty slot's NEG, so M's first
+    maximal slot is the empty one, as in JAX's masked argmax."""
+    rng = np.random.default_rng(9)
+    dags = [cases.random_dag(rng, 40, 2, 60), cases.random_dag(rng, 25, 2, 0)]
+    basep, predp, n, seq, qlen = cases.dag_planes(dags, 256, 4, 128)
+    shifted = np.full_like(predp, poa.NO_PRED)
+    shifted[:, :, 1:] = predp[:, :, :-1]       # slot 0 empty on every row
+    _kernels_vs_plain(poa.upload_windows(basep, shifted, n, seq, qlen, card), ALT)
+
+
+@pytest.mark.parametrize("p_pad", [1, 2, 4, 8, 16])
+def test_slot_counts(card, p_pad):
+    """p_pad 1, 2, 4 and 8 take the unrolled slot loops, 16 the general
+    one."""
+    rng = np.random.default_rng(40 + p_pad)
+    dags = [cases.random_dag(rng, int(rng.integers(20, 120)), p_pad, int(rng.integers(0, 900)))
+            for _ in range(5)]
+    _kernels_vs_plain(poa.upload_windows(*cases.dag_planes(dags, 256, p_pad, 1024), card),
+                      PoaParams())

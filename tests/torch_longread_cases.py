@@ -12,7 +12,13 @@ and a band width W.
   128; 200 bases at W 64, seed 2, div 0.05), the end cell on the band's
   first lane and on its last, an odd band, a band above 1,024 lanes (so a
   thread of the kernel holds several lanes), a query longer than the
-  target, a 2,000-base read at W 256, an empty target, and a single lane.
+  target, a 2,000-base read at W 256, an empty target, a single lane, and
+  a band of 10,000 lanes (wider than any one thread block could hold).
+* `with_end_lane`: a read whose end cell is a given lane of the band.
+* `band_binds`: reads whose best unbanded path leaves the band (an
+  insertion of 20 bases later deleted, and the reverse, at W 16 and 33; of
+  200 bases at W 256), and ones whose gaps are cheaper than a mismatch,
+  where a path around the band's edge would win.
 * `MAIN`: the main path's read, 100,000 target bases at div 0.08, seed 23,
   W 2,048: 204.8 M band cells, the ultra-long reads that f5c routes off the
   GPU (SURVEY.md §5.7).
@@ -49,7 +55,7 @@ def main_read():
     return q, t, MAIN["band"]
 
 
-def _with_end_lane(rng, n, W, kend):
+def with_end_lane(rng, n, W, kend):
     """A target of n bases and a query from it whose end cell is lane kend."""
     t = rng.integers(0, 4, n)
     m = n + kend - W // 2
@@ -70,8 +76,8 @@ def edge_cases():
     q, t = pair(np.random.default_rng(2), 200, div=0.05)
     out["single200"] = (q, t, 64)
     rng = np.random.default_rng(3)
-    out["kend_first"] = (*_with_end_lane(rng, 100, 64, 0), 64)
-    out["kend_last"] = (*_with_end_lane(rng, 100, 64, 63), 64)
+    out["kend_first"] = (*with_end_lane(rng, 100, 64, 0), 64)
+    out["kend_last"] = (*with_end_lane(rng, 100, 64, 63), 64)
     q, t = pair(np.random.default_rng(4), 150, div=0.06)
     out["odd_band"] = (q, t, 63)
     q, t = pair(np.random.default_rng(5), 150, div=0.2)
@@ -84,6 +90,41 @@ def edge_cases():
     out["empty_target"] = (np.arange(5) % 4, np.zeros(0, np.int64), 16)
     s = np.random.default_rng(9).integers(0, 4, 40)
     out["one_lane"] = (s, s.copy(), 1)
+    q, t = pair(np.random.default_rng(12), 300, div=0.1)
+    out["band10000"] = (q, t, 10_000)
+    return out
+
+
+def band_binds():
+    """{name: (query, target, W, (match, mismatch, gap))}: the band binds
+    the best path, at narrow bands and with cheap gaps."""
+    rng = np.random.default_rng(11)
+    t = rng.integers(0, 4, 300)
+    ins = np.concatenate([t[:100], rng.integers(0, 4, 20), t[100:200], t[220:]])
+    dele = np.concatenate([t[:100], t[120:220], rng.integers(0, 4, 20), t[220:]])
+    out = {}
+    for W in (16, 33):
+        for name, q in (("insert", ins), ("delete", dele)):
+            out[f"{name}_W{W}"] = (q, t, W, (1, -1, 2))
+            out[f"{name}_W{W}_cheap_gap"] = (q, t, W, (1, -6, 1))
+    for W in (1, 2):
+        q, t1 = pair(np.random.default_rng(30 + W), 300, div=0.2, indels=False)
+        out[f"W{W}_cheap_gap"] = (q, t1, W, (1, -6, 1))
+    # a band wide enough for the kernel's untested middle steps, cut by
+    # 200-base indels
+    t2 = rng.integers(0, 4, 1_200)
+    ins2 = np.concatenate([t2[:300], rng.integers(0, 4, 200), t2[300:700], t2[900:]])
+    dele2 = np.concatenate([t2[:300], t2[500:900], rng.integers(0, 4, 200), t2[900:]])
+    # a path along the band's top (bottom) edge, then a 20-base indel that
+    # an unbanded path would take outside the band and back
+    up = np.concatenate([t2[:600], rng.integers(0, 4, 120), t2[600:900], rng.integers(0, 4, 20),
+                         t2[900:1000], t2[1020:]])
+    down = np.concatenate([t2[:600], t2[720:900], t2[920:1000], rng.integers(0, 4, 20),
+                           t2[1000:]])
+    for name, q in (("insert", ins2), ("delete", dele2), ("top_edge", up),
+                    ("bottom_edge", down)):
+        out[f"{name}_W256"] = (q, t2, 256, (1, -1, 2))
+        out[f"{name}_W256_cheap_gap"] = (q, t2, 256, (1, -6, 1))
     return out
 
 

@@ -13,6 +13,8 @@ arrays:
   windows that end at different rounds, and reads of `longest` bases;
 * `random_dag`: random graph planes (basep, predp) in topological order with
   in-degrees from 1 to a maximum, for the kernels alone;
+* `distance_dag`: graph planes whose nodes read predecessors exactly
+  given distances back in rank, for the fill kernel's ring of rows;
 * `small_windows`: tests/test_poa.py-sized windows (30-120 bases) with
   deletions, insertions and substitutions;
 * `write_windows_fasta` / `build_poa_gold` / `run_poa_gold`: the window
@@ -146,6 +148,20 @@ def random_dag(rng, n, max_indeg, q_len):
         used[p] = True
     basep = rng.integers(0, 5, n).astype(np.uint8)
     basep |= np.where(used[1:], 0, 0x80).astype(np.uint8)
+    return basep, preds, rng.integers(0, 4, q_len).astype(np.int64)
+
+
+def distance_dag(rng, n, dists, q_len):
+    """random_dag's outputs for a chain of n nodes where node r0 (rank
+    r0 + 1) reads rank r0 (distance 1) and, where they exist, the ranks
+    exactly `dists` back, so a ring of R rows serves distance R - 1 and
+    sends distance R and R + 1 to the scratch."""
+    preds = []
+    for r0 in range(n):
+        rank = r0 + 1
+        preds.append(sorted({rank - 1} | {rank - d for d in dists if rank - d >= 0}))
+    basep = rng.integers(0, 4, n).astype(np.uint8)
+    basep[-1] |= 0x80
     return basep, preds, rng.integers(0, 4, q_len).astype(np.int64)
 
 
