@@ -49,7 +49,7 @@ SOURCES = {
     "poa": (CSRC / "poa.cu",
             {"gb_poa_fill": [_P] * 7 + [_L] + [_I] * 12 + [_P] * 7,
              "gb_poa_fill_occupancy": [_I] * 5 + [_P],
-             "gb_poa_backtrack": [_P] * 5 + [_L] + [_I] * 5 + [_P] * 3}),
+             "gb_poa_backtrack": [_P] * 5 + [_L] + [_I] * 5 + [_P] * 4}),
     "fmi": (CSRC / "fmi.cu",
             {"gb_fmi_smem1": [_P, _P, _I] + [_P] * 4 + [_L] + [_I] * 10 + [_P] * 2,
              "gb_fmi_seed3": [_P, _P, _I, _P, _L] + [_I] * 9 + [_P] * 2,
@@ -60,7 +60,7 @@ SOURCES = {
              {"gb_kmer_canonical": [_P, _P, _L, _L, _I, _I, _P, _P],
               "gb_kmer_runs": [_P, _L, _P, _P],
               "gb_kmer_freqs": [_P, _P, _L, _P, _P, _P],
-              "gb_kmer_minimizers": [_P, _P, _L, _L, _I, _I] + [_P] * 5,
+              "gb_kmer_minimizers": [_P, _P, _L, _L, _I, _I] + [_P] * 4,
               "gb_kmer_sites": [_P] * 4 + [_L, _L, _I] + [_P] * 4}),
     "basecaller": (CSRC / "basecaller.cu",
                    {"gb_bc_depthwise": [_P, _P, _L] + [_I] * 5 + [_P, _P],

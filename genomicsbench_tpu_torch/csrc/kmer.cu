@@ -1,6 +1,7 @@
 // Flye kmer-cnt for Hopper: canonical k-mers, their run counts and
-// per-position frequencies, the window-minimizer deque and the minimizer
-// sites.  Five kernels, each one thread per work item, no warp collective.
+// per-position frequencies, the window-minimizer walk and the minimizer
+// sites.  Five kernels: four one thread per work item, the walk one block
+// per read.
 //
 // The JAX package computes these in genomicsbench_tpu/ops/kmer.py:
 //   gb_kmer_canonical  replaces `_canonical_kmers` (:165) and, on the
@@ -32,25 +33,71 @@
 // byte from the unpacked codes exactly so, without the host pass.  Mode 0
 // reads the codes as given (count_kmers, the frequency plane).
 //
+// The minimizer walk.  The JAX package's scan carries the deque's front,
+// and the front is path dependent: on a homopolymer a walk from position 0
+// and one started fresh a few positions later keep fronts of different
+// phase for ever, so the read cannot be split by warming each piece up.
+// It is a chain instead.  The front after a live step p is always a
+// position of the minimum hash of the window max(0, p - w + 1) .. p (by
+// induction over the plain version's new = evict ? latest_tied :
+// max(front, earliest), and min(new, earliest) for p < w): so it stays
+// where it is until a strictly smaller hash enters the window, and moves
+// there, or until step front + w evicts it, and moves to the last minimum
+// of the window front + 1 .. front + w.  Which comes first, and where to,
+// depends on the front's position s alone: next(s) is the first q in s + 1
+// .. s + w with h[q] < h[s], else the last minimum of s + 1 .. s + w, and
+// none where that step is not live (q >= length - k).  The fronts are the
+// chain of next from position 0, and the mask is the set of them (the
+// plain version's emission only skips a front already emitted).  So the
+// walk is a scan over segments: each thread owns kMinSeg consecutive
+// positions of a tile, computes next for each (the hashes ahead are in
+// shared memory; a random read finds a smaller hash within a few), then in
+// one backward sweep each position's exit, the first front at or past the
+// segment's end that the chain reaches from it.  That sweep is the
+// segment's map from its entry (the first front at or past its start, one
+// of w positions or none) to its exit.  Warp 0 composes the maps from the
+// tile's carried entry, 32 segments a round: a segment whose w entries all
+// exit to one front (most, on random sequence) gives the next its entry
+// outright, and a run of the others is walked a shuffle a segment (a
+// homopolymer's maps are permutations: the run is the whole tile).  Each
+// thread then walks its segment from its entry and marks the fronts in a
+// shared byte per position, and the block stores the tile's mask bytes
+// and raw k-mers coalesced, each position once.  Positions past a row's
+// last full k-mer read columns modulo L, as jnp.roll does, so the raw
+// plane there holds the wrapped values.  A window above kMinSharedWindow
+// keeps the read's hashes in a device scratch, written by a first pass
+// over the read, since its look-ahead passes a tile.  The look-ahead costs
+// at most w hash compares a position (about ln w on random sequence, w on
+// a homopolymer).  tests/torch_kmer_cases.py `segment_scan_walk` is a
+// numpy model of the scan, held against the plain version and the JAX
+// package at segments of 1, w - 1, w, w + 1 and 37 positions.
+//
 // Bounds (chip_smoke.py `[kmer kernel]` counts them from each run's inputs):
 // the canonical pass, the run count and the frequency scatter are bytes
 // bound (one code byte in and one 4-byte key out per position; 4 bytes of
 // key; 4 + 8 bytes of key and permutation in and 2 bytes out); the
 // minimizer walk moves one code byte in and 8 + 1 bytes of raw k-mer and
 // mask out per position and does a few tens of integer instructions per
-// position (the hash is two 64-bit products), one thread per read, so a
-// 25,000-read batch fills about 6 warps of each SM and the walk is bound by
-// the latency of its dependent chain; the site build reads 9 bytes per
+// position (the hash is two 64-bit products, the look-ahead a few 64-bit
+// compares), so it is bytes bound; the site build reads 9 bytes per
 // position and writes 16 per site.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int32_t kSentinelKey = 0x7FFFFFFF;   // SENTINEL 0xFFFFFFFF ^ 0x80000000
-constexpr int kRingCap = 64;                   // ring entries held per thread; more in scratch
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
+constexpr int kMinThreads = 128;               // threads of a minimizer block
+constexpr int kMinSegBits = 4;
+constexpr int kMinSeg = 1 << kMinSegBits;      // consecutive positions a thread walks
+constexpr int kMinTile = kMinThreads * kMinSeg;
+constexpr int kMinSharedWindow = 1024;         // windows up to this read ahead in shared memory
+constexpr int kMinMaxLen = 1 << 30;            // positions are int32, with room for a window
+constexpr int32_t kEnd = INT32_MAX;            // no next front
 
 __device__ __forceinline__ uint32_t kmer_mask(int k) {
   return k == 16 ? 0xFFFFFFFFu : ((1u << (2 * k)) - 1u);
@@ -194,91 +241,226 @@ freqs_kernel(const int32_t* __restrict__ s, const int64_t* __restrict__ order, i
   }
 }
 
-// yieldMinimizers' monotone deque (kmer.h:206-262) for one read per thread,
-// as a ring of window + 1 (position, hash) entries: in the thread's local
-// array up to kRingCap entries, else in the device scratch, slot s of read b
-// at s * B + b.  The raw k-mer rolls along the row modulo 2^32 (subtract the
-// leaving code's term, shift, add the entering code), reading columns
-// modulo L as the JAX package's jnp.roll does, so positions past the row's
-// last full k-mer hold its wrapped values too.
-template <bool kScratch>
-struct Ring {
-  uint64_t h_local[kScratch ? 1 : kRingCap];
-  int32_t p_local[kScratch ? 1 : kRingCap];
-  uint64_t* h_glob;
-  int32_t* p_glob;
-  int64_t stride;
+// Shared-memory index of tile slot i: one pad word after every segment's
+// kMinSeg slots, so that the threads, each at the same step of its own
+// segment, hit distinct banks; the code bytes pad four bytes a segment.
+__device__ __forceinline__ int slot(int i) { return i + (i >> kMinSegBits); }
+__device__ __forceinline__ int code_slot(int i) { return i + 4 * (i >> kMinSegBits); }
+__host__ __device__ constexpr int slots(int n) { return n + (n >> kMinSegBits) + 1; }
 
-  __device__ __forceinline__ uint64_t& h(int s) {
-    if constexpr (kScratch) return h_glob[s * stride]; else return h_local[s];
-  }
-  __device__ __forceinline__ int32_t& p(int s) {
-    if constexpr (kScratch) return p_glob[s * stride]; else return p_local[s];
-  }
-};
+__device__ __forceinline__ uint32_t kmer_from(const uint8_t* cbuf, int i, int k) {
+  uint32_t x = 0;
+  for (int j = 0; j < k; ++j)
+    x += static_cast<uint32_t>(cbuf[code_slot(i + j)]) << (2 * (k - 1 - j));
+  return x;
+}
+
+// The dynamic shared memory of a minimizer block: the hashes of the tile
+// and of the `ahead` positions past it (uint64), then in their place each
+// position's exit (int32) and mask byte; the raw k-mers, then in their
+// place the next fronts (int32); the segments' entries and the carry,
+// their constant exits; and the codes.
+size_t minimizer_shared_bytes(int ahead, int k) {
+  const int n_codes = kMinTile + ahead + k;
+  return static_cast<size_t>(slots(kMinTile + ahead)) * 8 + slots(kMinTile) * 4
+         + (2 * kMinThreads + 1) * 4 + n_codes + 4 * (n_codes >> kMinSegBits) + 20;
+}
 
 template <bool kScratch>
-__global__ void __launch_bounds__(64)
+__global__ void __launch_bounds__(kMinThreads)
 minimizer_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
-                 int64_t B, int64_t L, int k, int window, int64_t* __restrict__ raw,
-                 uint8_t* __restrict__ mask, uint64_t* scratch_h, int32_t* scratch_p) {
-  const int64_t b = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (b >= B || L == 0) return;
+                 int64_t L, int k, int w, int64_t* __restrict__ raw,
+                 uint8_t* __restrict__ mask, uint64_t* scratch) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ahead = kScratch ? 0 : w;
+  uint64_t* hs = reinterpret_cast<uint64_t*>(smem);
+  int32_t* ext = reinterpret_cast<int32_t*>(smem);                      // over hs
+  uint8_t* mbuf = reinterpret_cast<uint8_t*>(ext + slots(kMinTile));   // over hs
+  uint32_t* rawbuf = reinterpret_cast<uint32_t*>(hs + slots(kMinTile + ahead));
+  int32_t* nxt = reinterpret_cast<int32_t*>(rawbuf);                    // over rawbuf
+  int32_t* entry = nxt + slots(kMinTile);            // kMinThreads, then the carry
+  int32_t* segc = entry + kMinThreads + 1;           // kMinThreads
+  uint8_t* cbuf = reinterpret_cast<uint8_t*>(segc + kMinThreads);
+  const int64_t b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int n = static_cast<int>(L);
   const uint8_t* row = codes + b * L;
   int64_t* raw_row = raw + b * L;
   uint8_t* mask_row = mask + b * L;
-  const int64_t live = static_cast<int64_t>(lengths[b]) - k;
-  const int cap = window + 1;
-
-  Ring<kScratch> q;
-  if constexpr (kScratch) {
-    q.h_glob = scratch_h + b;
-    q.p_glob = scratch_p + b;
-    q.stride = B;
-  }
-  int head = 0, size = 0;           // the front is slot head; the back head + size - 1
-  int64_t last_emit = -1;
-
-  uint32_t x = 0;
-  for (int j = 0; j < k; ++j) x += static_cast<uint32_t>(row[j % L]) << (2 * (k - 1 - j));
+  uint64_t* hash_row = kScratch ? scratch + b * L : nullptr;
+  const int live = lengths[b] - k;      // steps 0 .. live - 1 move the front
   const int top = 2 * (k - 1);
-  for (int64_t p = 0; p < L; ++p) {
-    raw_row[p] = x;
-    mask_row[p] = 0;
-    if (p < live) {
-      const uint64_t h = splitmix(canonical(x, k));
-      while (size > 0) {
-        int back = head + size - 1;
-        if (back >= cap) back -= cap;
-        if (q.h(back) <= h) break;
-        --size;
-      }
-      int tail = head + size;
-      if (tail >= cap) tail -= cap;
-      q.h(tail) = h;
-      q.p(tail) = static_cast<int32_t>(p);
-      ++size;
-      if (q.p(head) <= p - window) {
-        while (q.p(head) <= p - window) {
-          if (++head == cap) head = 0;
-          --size;
+  const int a = tid * kMinSeg;          // the thread's segment, from the tile's start
+  const int n_codes = kMinTile + ahead + k;
+  // 16-byte code loads and 4-byte mask stores where the row allows them
+  const bool row16 = (reinterpret_cast<uintptr_t>(row) & 15) == 0;
+  const bool mask4 = (reinterpret_cast<uintptr_t>(mask_row) & 3) == 0;
+
+  // The tile's codes (columns modulo L, as jnp.roll reads them), raw
+  // k-mers and hashes; with the hashes in the scratch, the raw plane
+  // stored, coalesced (else `fronts` stores it).
+  auto raw_and_hashes = [&](int t0) {
+    for (int i0 = tid * 16; i0 < n_codes; i0 += kMinThreads * 16) {
+      if (row16 && t0 + i0 + 16 <= n) {      // one segment's 16 codes, padded past
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + t0 + i0));
+        uint32_t* dst = reinterpret_cast<uint32_t*>(cbuf + code_slot(i0));
+        dst[0] = v.x;
+        dst[1] = v.y;
+        dst[2] = v.z;
+        dst[3] = v.w;
+      } else {
+        for (int i = i0; i < i0 + 16 && i < n_codes; ++i) {
+          int c = t0 + i;
+          if (c >= n) c %= n;
+          cbuf[code_slot(i)] = row[c];
         }
-        while (size >= 2) {
-          int second = head + 1;
-          if (second == cap) second = 0;
-          if (q.h(head) != q.h(second)) break;
-          head = second;
-          --size;
-        }
-      }
-      const int64_t front = q.p(head);
-      if (front != last_emit) {
-        mask_row[front] = 1;
-        last_emit = front;
       }
     }
-    x = ((x - (static_cast<uint32_t>(row[p]) << top)) << 2)
-        + static_cast<uint32_t>(row[(p + k) % L]);
+    __syncthreads();
+    if (t0 + a < n) {
+      uint32_t x = kmer_from(cbuf, a, k);
+#pragma unroll 4
+      for (int s = 0; s < kMinSeg; ++s) {
+        const int p = t0 + a + s;
+        rawbuf[slot(a + s)] = x;
+        if (p < live) {
+          const uint64_t h = splitmix(canonical(x, k));
+          if constexpr (kScratch) hash_row[p] = h; else hs[slot(a + s)] = h;
+        }
+        x = ((x - (static_cast<uint32_t>(cbuf[code_slot(a + s)]) << top)) << 2)
+            + static_cast<uint32_t>(cbuf[code_slot(a + s + k)]);
+      }
+    }
+    if constexpr (!kScratch) {
+      for (int i = kMinTile + tid; i < kMinTile + w && t0 + i < live; i += kMinThreads)
+        hs[slot(i)] = splitmix(canonical(kmer_from(cbuf, i, k), k));
+    }
+    __syncthreads();
+    if constexpr (kScratch) {
+      const int here = min(kMinTile, n - t0);
+      for (int i = tid; i < here; i += kMinThreads) raw_row[t0 + i] = rawbuf[slot(i)];
+    }
+  };
+
+  // The tile's fronts from the carried entry (the first front at or past
+  // t0), and its mask bytes stored, coalesced; the carry becomes the next
+  // tile's entry.
+  auto fronts = [&](int t0) {
+    // each position's next front: the first later position of a strictly
+    // smaller hash within w - 1, else the last minimum of the window whose
+    // step evicts it; kEnd where that step is not live.  Consecutive lanes
+    // take consecutive positions, so their look-ahead reads hit distinct
+    // banks; each position's raw k-mer is stored (coalesced) before its
+    // next front takes its slot.
+    for (int i = tid; i < kMinTile; i += kMinThreads) {
+      const int p = t0 + i;
+      if constexpr (!kScratch) {
+        if (p < n) raw_row[p] = rawbuf[slot(i)];
+      }
+      int nx = kEnd;
+      if (p < live) {
+        const uint64_t hp = kScratch ? hash_row[p] : hs[slot(i)];
+        const int steps = min(w, live - 1 - p);      // look-ahead steps still live
+        uint64_t m = ~0ull;
+        int d = 1;
+        for (; d <= steps; ++d) {
+          const uint64_t hq = kScratch ? hash_row[p + d] : hs[slot(i + d)];
+          if (hq < hp) {
+            nx = p + d;
+            break;
+          }
+          if (hq <= m) {
+            m = hq;
+            nx = p + d;
+          }
+        }
+        if (d > steps && steps < w) nx = kEnd;     // the walk ends before the eviction
+      }
+      nxt[slot(i)] = nx;
+    }
+    __syncthreads();                   // the hashes are read no more
+    // each position's exit: the first front at or past the segment's end
+    // that the fronts reach from it
+    const int end = t0 + a + kMinSeg;
+    for (int s = a + kMinSeg - 1; s >= a; --s) {
+      const int y = nxt[slot(s)];
+      ext[slot(s)] = y >= end ? y : ext[slot(y - t0)];
+    }
+    // the segment's map is constant where its w entries share one exit.
+    // Past the walk's last front s (its next step not live) every segment's
+    // entries exit to none too: their fronts stay below s + w, short of
+    // the segment's end, since w <= kMinSeg; so a constant exit is never a
+    // front after the walk has ended.
+    {
+      const int c = ext[slot(a)];
+      bool same = w <= kMinSeg;
+      for (int o = 1; o < w && same; ++o) same = ext[slot(a + o)] == c;
+      segc[tid] = same ? c : -1;
+    }
+    for (int i = tid; i < kMinTile; i += kMinThreads) mbuf[i] = 0;
+    __syncthreads();
+    // the segments' entries: warp 0 takes 32 segments a round, each lane's
+    // entry the constant exit of the segment before it where it has one,
+    // else that segment's map applied to the entry before, as it becomes
+    // known (a shuffle a step)
+    if (tid < 32) {
+      auto apply = [&](int i, int e) {     // segment i's map (e at or past its start)
+        return e < t0 + (i + 1) * kMinSeg ? ext[slot(e - t0)] : e;
+      };
+      int first = entry[kMinThreads];
+      for (int g = 0; g < kMinThreads; g += 32) {
+        const int i = g + tid;
+        int v = first;
+        bool known = tid == 0;
+        if (!known) {
+          v = segc[i - 1];
+          known = v >= 0;
+        }
+        while (__ballot_sync(kFull, !known)) {
+          const int pv = __shfl_up_sync(kFull, v, 1);
+          const bool pk = __shfl_up_sync(kFull, known, 1);
+          if (!known && pk) {
+            v = apply(i - 1, pv);
+            known = true;
+          }
+        }
+        entry[i] = v;
+        first = apply(g + 31, __shfl_sync(kFull, v, 31));
+      }
+      if (tid == 0) entry[kMinThreads] = first;
+    }
+    __syncthreads();
+    for (int e = entry[tid]; e < end; e = nxt[slot(e - t0)]) mbuf[e - t0] = 1;
+    __syncthreads();
+    const int here = min(kMinTile, n - t0);
+    if (mask4) {
+      for (int i = 4 * tid; i < here; i += 4 * kMinThreads) {
+        if (i + 4 <= here)
+          *reinterpret_cast<uint32_t*>(mask_row + t0 + i) = *reinterpret_cast<uint32_t*>(mbuf + i);
+        else
+          for (int j = i; j < here; ++j) mask_row[t0 + j] = mbuf[j];
+      }
+    } else {
+      for (int i = tid; i < here; i += kMinThreads) mask_row[t0 + i] = mbuf[i];
+    }
+  };
+
+  if (tid == 0) entry[kMinThreads] = live > 0 ? 0 : kEnd;    // the first front is position 0
+  if constexpr (kScratch) {
+    for (int t0 = 0; t0 < n; t0 += kMinTile) {
+      raw_and_hashes(t0);
+      __syncthreads();                 // the codes and raw k-mers are refilled next
+    }
+    for (int t0 = 0; t0 < n; t0 += kMinTile) {
+      fronts(t0);
+      __syncthreads();
+    }
+  } else {
+    for (int t0 = 0; t0 < n; t0 += kMinTile) {
+      raw_and_hashes(t0);
+      fronts(t0);
+      __syncthreads();
+    }
   }
 }
 
@@ -357,22 +539,22 @@ extern "C" int gb_kmer_freqs(const void* sorted_keys, const void* order, int64_t
   return static_cast<int>(cudaGetLastError());
 }
 
+// The raw k-mer plane (B, L) int64 and the mask (B, L) uint8 of every
+// read; `scratch`, (B, L) uint64, holds the hashes where window >
+// kMinSharedWindow and may be null otherwise.
 extern "C" int gb_kmer_minimizers(const void* codes, const void* lengths, int64_t B, int64_t L,
-                                  int k, int window, void* raw, void* mask, void* scratch_h,
-                                  void* scratch_p, void* stream) {
+                                  int k, int window, void* raw, void* mask, void* scratch,
+                                  void* stream) {
   if (B <= 0 || L <= 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((B + 63) / 64);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (window + 1 <= kRingCap) {
-    minimizer_kernel<false><<<blocks, 64, 0, st>>>(
-        static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(lengths), B, L, k, window,
-        static_cast<int64_t*>(raw), static_cast<uint8_t*>(mask), nullptr, nullptr);
-  } else {
-    minimizer_kernel<true><<<blocks, 64, 0, st>>>(
-        static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(lengths), B, L, k, window,
-        static_cast<int64_t*>(raw), static_cast<uint8_t*>(mask),
-        static_cast<uint64_t*>(scratch_h), static_cast<int32_t*>(scratch_p));
-  }
+  const bool scr = window > kMinSharedWindow;
+  if (B > INT_MAX || L > kMinMaxLen || window < 1 || window > kMinMaxLen || k < 1 || k > 16 ||
+      (scr && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int shared = static_cast<int>(minimizer_shared_bytes(scr ? 0 : window, k));
+  const auto kernel = scr ? minimizer_kernel<true> : minimizer_kernel<false>;
+  kernel<<<static_cast<unsigned>(B), kMinThreads, shared, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(lengths), L, k, window,
+      static_cast<int64_t*>(raw), static_cast<uint8_t*>(mask), static_cast<uint64_t*>(scratch));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -66,16 +66,29 @@
 // not bytes: each slot used to cost two dependent round trips to L2 on the
 // row chain.
 //
-// Backtrack.  One thread per window: the walk is a pointer chase, one
-// dependent load of a trace cell per step and one of a predecessor rank per
-// node step, over at most n + qlen steps.  It writes the entries
-// rank * (q_pad + 1) + jcode (rank 0: query-only column; jcode 0: graph gap)
-// or, when asked, the 4-bit code stream of native/poa.cpp's
-// gb_poa_decode_path, eight nibbles to a word, in backward order, then
+// Backtrack.  One warp per window, a block each, so a slab's windows
+// spread over every SM.  The walk is a pointer chase: a node step reads
+// the trace cell (r - 1, j), whose aux picks the predecessor slot whose
+// rank is the next row, over at most n + qlen steps; reading both from
+// device memory put two dependent round trips on each step, since the fill
+// has just streamed the slab's traces (hundreds of MB) through L2.  Moves
+// never raise r or j and predecessors lie a few ranks back, so a tile of
+// kBtRows x kBtCols trace cells (and the same rows' predecessor slots,
+// where p_pad <= kBtPredCap), anchored at the cell the walk reads next,
+// carries the walk for tens of steps: lane 0 walks from shared memory and
+// the warp loads the next tile when a node step's cell falls off it (a far
+// predecessor, a long query gap).  The steps are those of JAX's lockstep
+// walk, kept exactly (gap origin, aux clamp, kNoPred, query-only steps at
+// r = 0).  It writes the entries rank * (q_pad + 1) + jcode (rank 0:
+// query-only column; jcode 0: graph gap) or, when asked, the 4-bit code
+// stream of native/poa.cpp's gb_poa_decode_path, eight nibbles to a word,
+// in backward order, staged in shared memory and stored by the warp, then
 // zeroes the rest of its row.  About 12 int32 operations a step (the move
 // tests, the entry, the next rank, column and gap origin, the store;
-// POA_BT_INT32_OPS_PER_STEP in ops/poa.py); its time is the longest walk's
-// chain of dependent loads, not its operations or bytes.
+// POA_BT_INT32_OPS_PER_STEP in ops/poa.py); its time is the longest
+// walk's chain: a shared-memory step each (two dependent shared loads) and
+// a tile load (one device round trip, all of the tile's cp.async in
+// flight) every few tens of steps.
 
 #include <climits>
 #include <cstdint>
@@ -94,7 +107,12 @@ constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxQPad = 1 << kAuxBits;
 constexpr int kShortKeyQPad = 2048;    // int32 E keys up to this q_pad
 constexpr int kMaxShared = 232448;     // bytes a block may opt in to
-constexpr int kBacktrackThreads = 64;
+constexpr int kBtRows = 64;           // trace rows a backtrack tile holds
+constexpr int kBtCols = 64;           // trace columns a backtrack tile holds
+constexpr int kBtChunks = kBtCols / 8 + 1;    // 16-byte chunks a tile row holds
+constexpr int kBtPitch = 8 * kBtChunks;       // elements a tile row holds
+constexpr int kBtPredCap = 32;        // p_pad up to this: the tile holds the predecessor slots
+constexpr int kBtOut = 256;           // path words staged before the warp stores them
 constexpr int kMoveM = 0, kMoveF1Open = 1, kMoveF1Ext = 2, kMoveF2Open = 3, kMoveF2Ext = 4,
               kMoveE1 = 5, kMoveE2 = 6;
 
@@ -471,62 +489,163 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(K) == 4 ? 2 : 1) poa_fill_
   }
 }
 
-__global__ void __launch_bounds__(kBacktrackThreads) poa_backtrack_kernel(
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The bytes of the chunk of `n` uint16 elements from element e (e < total)
+// that lie in an array of `total` elements; cp.async fills the rest with
+// zeros.
+__device__ __forceinline__ int chunk_bytes(int64_t e, int n, int64_t total) {
+  return e + n <= total ? 2 * n : static_cast<int>(total - e) * 2;
+}
+
+// One warp per window.  Lane 0 walks from a tile of the traces in shared
+// memory: trace rows r - kBtRows .. r - 1 and columns j - kBtCols + 1 .. j
+// (from column 0 at most), anchored at the cell the walk reads next, and
+// the same rows' predecessor slots where p_pad <= kBtPredCap (kPredTiled;
+// else a node step loads its predecessor rank from the plane).  Moves
+// never raise the row or the column, so the walk stays in the tile until a
+// node step's cell lies below its first row or left of its first column (a
+// far predecessor, a long query gap); then the warp loads the tile anew,
+// anchored there, all of it in flight at once: 16-byte cp.async chunks,
+// consecutive lanes on consecutive chunks of a row, each row stored from
+// the 16-byte boundary at or before its first column (a cell's index adds
+// its row's offset from that boundary); the predecessor rows, contiguous
+// in the plane, by 4-byte words from the even element at or before the
+// first.  Gap and query-only steps read no cell.  A step's loads and stores
+// are unconditional (clamped where the step reads nothing) and its choices
+// selects, since every branch on the lone lane's path costs the warp a
+// reconvergence.  The entries (or their
+// 4-bit codes, eight to a word, kCodes) are staged in shared memory and
+// stored by the warp kBtOut words at a time, coalesced, then the rest of
+// the row is zeroed.  `tiles`, where given, gets each window's tile loads.
+template <bool kCodes, bool kPredTiled>
+__global__ void __launch_bounds__(32) poa_backtrack_kernel(
     const uint16_t* __restrict__ predp, const uint16_t* __restrict__ trace,
     const int64_t* __restrict__ trace_off, const int32_t* __restrict__ qlen_arr,
-    const int32_t* __restrict__ best_rank, int64_t n_windows, int n_pad, int p_pad, int q_pad,
-    int codes, int width, int32_t* __restrict__ path, int32_t* __restrict__ plen) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= n_windows) return;
+    const int32_t* __restrict__ best_rank, int n_pad, int p_pad, int q_pad, int width,
+    int32_t* __restrict__ path, int32_t* __restrict__ plen, int32_t* __restrict__ tiles) {
+  __shared__ __align__(16) uint16_t tile[kBtRows][kBtPitch];
+  __shared__ int32_t staged[kBtOut];
+  extern __shared__ __align__(16) uint16_t pred_tile[];   // kBtRows x p_pad + 4
+  const int64_t b = blockIdx.x;
+  const int lane = threadIdx.x;
   const int qlen = qlen_arr[b], W = qlen + 1, qw = q_pad + 1;
-  const uint16_t* tb = trace + trace_off[b];
-  const uint16_t* pp = predp + b * static_cast<int64_t>(n_pad) * p_pad;
-  int32_t* out = path + b * width;
-  int r = best_rank[b], j = qlen, gk = -1, t = 0;
+  const int64_t toff = trace_off[b], trace_total = trace_off[gridDim.x];
+  const int64_t pbase = b * n_pad * p_pad;
+  const int64_t pred_total = static_cast<int64_t>(gridDim.x) * n_pad * p_pad;
+  int32_t* out = path + b * static_cast<int64_t>(width);
+  int r = best_rank[b], j = qlen, gk = -1, t = 0;   // lane 0's walk
   uint32_t word = 0;
-  while (r > 0 || j > 0) {
-    const bool in_gap = gk >= 0;
-    const bool on_node = !in_gap && r > 0;
-    int mv = 0, aux = 0;
-    if (on_node) {
-      const unsigned cell = __ldg(tb + static_cast<int64_t>(r - 1) * W + j);
-      mv = static_cast<int>(cell >> kAuxBits);
-      aux = static_cast<int>(cell & kAuxMask);
-    }
-    const bool is_m = on_node && mv == kMoveM;
-    const bool is_e = on_node && (mv == kMoveE1 || mv == kMoveE2);
-    const bool is_f = on_node && !is_m && !is_e;
-    const int aux_c = min(aux, p_pad - 1);
-    int entry;
-    if (codes) entry = is_m ? aux_c : is_f ? p_pad + aux_c : 2 * p_pad;
-    else entry = (is_m || is_f ? r : 0) * qw + (is_f ? 0 : j);
-    const int j_new = is_f ? j : j - 1;      // every other step consumes a query base
-    if (is_m || is_f) {
-      const unsigned pv = __ldg(pp + static_cast<int64_t>(r - 1) * p_pad + aux_c);
-      r = pv == kNoPred ? 0 : static_cast<int>(pv);
-    }
-    const int gk_tmp = is_e ? aux : gk;
-    gk = (in_gap || is_e) && j_new > gk_tmp ? gk_tmp : -1;
-    j = j_new;
-    if (codes) {
-      word |= static_cast<uint32_t>(entry) << (4 * (t & 7));
-      if ((t & 7) == 7) {
-        out[t >> 3] = static_cast<int32_t>(word);
-        word = 0;
+  int row0 = INT_MAX, col0 = INT_MAX;   // the tile's first row and column: none yet
+  int c8 = 0;                           // (toff + col0) mod 8
+  int plo = 0, p1 = 0;                  // the predecessor tile's first row, its parity
+  int stored = 0, loads = 0;            // path words stored; tiles loaded
+  while (true) {
+    int need = 0;           // 0: the walk is over; 1: its next cell is off the tile; 2: staging full
+    if (lane == 0) {
+      while (r > 0 || j > 0) {
+        const bool in_gap = gk >= 0;
+        const bool on_node = !in_gap && r > 0;
+        if (on_node && (r - 1 < row0 || j < col0)) {
+          need = 1;
+          break;
+        }
+        if ((kCodes ? t >> 3 : t) - stored >= kBtOut) {
+          need = 2;
+          break;
+        }
+        const int row = on_node ? r - 1 : row0;
+        const int col = on_node ? j - col0 + ((c8 + row * W) & 7) : 0;
+        const unsigned cell = tile[row - row0][col];
+        const int mv = on_node ? static_cast<int>(cell >> kAuxBits) : 0;
+        const int aux = on_node ? static_cast<int>(cell & kAuxMask) : 0;
+        const bool is_m = on_node && mv == kMoveM;
+        const bool is_e = on_node && (mv == kMoveE1 || mv == kMoveE2);
+        const bool is_f = on_node && !is_m && !is_e;
+        const bool moves = is_m || is_f;
+        const int aux_c = min(aux, p_pad - 1);
+        unsigned pv;
+        if constexpr (kPredTiled)
+          pv = pred_tile[moves ? (row - plo) * p_pad + aux_c + p1 : 0];
+        else
+          pv = __ldg(predp + pbase + (moves ? static_cast<int64_t>(row) * p_pad + aux_c : 0));
+        const int j_new = is_f ? j : j - 1;      // every other step consumes a query base
+        const int gk_tmp = is_e ? aux : gk;
+        if constexpr (kCodes) {
+          const int entry = is_m ? aux_c : is_f ? p_pad + aux_c : 2 * p_pad;
+          word |= static_cast<uint32_t>(entry) << (4 * (t & 7));
+          staged[(t >> 3) - stored] = static_cast<int32_t>(word);
+          word = (t & 7) == 7 ? 0 : word;
+        } else {
+          staged[t - stored] = (moves ? r : 0) * qw + (is_f ? 0 : j);
+        }
+        r = moves ? (pv == kNoPred ? 0 : static_cast<int>(pv)) : r;
+        gk = (in_gap || is_e) && j_new > gk_tmp ? gk_tmp : -1;
+        j = j_new;
+        ++t;
       }
-    } else {
-      out[t] = entry;
     }
-    ++t;
+    need = __shfl_sync(kFull, need, 0);
+    __syncwarp();
+    if (need == 0) break;
+    if (need == 2) {
+      for (int i = lane; i < kBtOut; i += 32) out[stored + i] = staged[i];
+      stored += kBtOut;
+      __syncwarp();
+      continue;
+    }
+    const int top = __shfl_sync(kFull, r, 0), right = __shfl_sync(kFull, j, 0);
+    row0 = top - kBtRows;
+    col0 = max(right - kBtCols + 1, 0);
+    const int64_t base = toff + col0;
+    c8 = static_cast<int>(base & 7);
+    const int ncols = right - col0 + 1;
+    const int rr0 = max(0, -row0);
+    for (int it = lane; it < (kBtRows - rr0) * kBtChunks; it += 32) {
+      const int rr = rr0 + it / kBtChunks, ch = it % kBtChunks;
+      const int64_t first = base + static_cast<int64_t>(row0 + rr) * W;
+      const int64_t e = (first & ~7LL) + 8 * ch;
+      if (e < first + ncols)
+        cp_async16(&tile[rr][8 * ch], trace + e, chunk_bytes(e, 8, trace_total));
+    }
+    if constexpr (kPredTiled) {
+      plo = max(row0, 0);
+      const int64_t first = pbase + static_cast<int64_t>(plo) * p_pad;
+      p1 = static_cast<int>(first & 1);
+      const int n_words = (p1 + (top - plo) * p_pad + 1) >> 1;
+      for (int i = lane; i < n_words; i += 32) {
+        const int64_t e = (first & ~1LL) + 2 * i;
+        cp_async4(pred_tile + 2 * i, predp + e, chunk_bytes(e, 2, pred_total));
+      }
+    }
+    cp_async_wait_all();
+    ++loads;
+    __syncwarp();
   }
-  int next = t;
-  if (codes) {
-    if (t & 7) out[t >> 3] = static_cast<int32_t>(word);
-    next = (t + 7) >> 3;
+  // the staged words (the last code word is staged as it fills), then the
+  // row's zero tail
+  const int total = __shfl_sync(kFull, kCodes ? (t + 7) >> 3 : t, 0);
+  for (int i = stored + lane; i < total; i += 32) out[i] = staged[i - stored];
+  for (int i = total + lane; i < width; i += 32) out[i] = 0;
+  if (lane == 0) {
+    plen[b] = t;
+    if (tiles != nullptr) tiles[b] = loads;
   }
-  for (int i = next; i < width; ++i) out[i] = 0;
-  plen[b] = t;
 }
+
+using BacktrackKernel = decltype(&poa_backtrack_kernel<false, false>);
 
 using FillKernel = decltype(&poa_fill_kernel<0, int>);
 
@@ -612,20 +731,30 @@ extern "C" int gb_poa_fill_occupancy(int n_pad, int p_pad, int q_pad, int thread
 // The tables of gb_poa_fill and its traces and best_rank.  Writes each
 // window's path, `width` int32 words per window: entries rank*(q_pad+1) +
 // jcode in backward order (codes == 0), or the 4-bit codes, eight to a
-// word (codes != 0, p_pad <= 7), the rest of the row zero; and plen (B,)
-// i32, the entries' count.  Launches on `stream`, does not synchronise, and
-// returns the CUDA error of the launch.
+// word (codes != 0, p_pad <= 7), the rest of the row zero; plen (B,) i32,
+// the entries' count; and, where `tiles` is not null, (B,) i32 the trace
+// tiles each window's walk loaded.  The traces must be 16-byte aligned and
+// the predecessor plane 4-byte aligned (cudaErrorMisalignedAddress else).
+// Launches on `stream`, does not synchronise, and returns the CUDA error of
+// the launch.
 extern "C" int gb_poa_backtrack(const void* predp, const void* trace, const void* trace_off,
                                 const void* qlen, const void* best_rank, int64_t n_windows,
                                 int n_pad, int p_pad, int q_pad, int codes, int width,
-                                void* path, void* plen, void* stream) {
+                                void* path, void* plen, void* tiles, void* stream) {
   if (n_windows <= 0) return 0;
-  const int64_t blocks = (n_windows + kBacktrackThreads - 1) / kBacktrackThreads;
-  poa_backtrack_kernel<<<static_cast<unsigned>(blocks), kBacktrackThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  if (n_windows > INT_MAX || p_pad < 1 || q_pad > kMaxQPad)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(trace) & 15) || (reinterpret_cast<uintptr_t>(predp) & 3))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const bool tiled = p_pad <= kBtPredCap;
+  const BacktrackKernel kernel =
+      codes ? (tiled ? poa_backtrack_kernel<true, true> : poa_backtrack_kernel<true, false>)
+            : (tiled ? poa_backtrack_kernel<false, true> : poa_backtrack_kernel<false, false>);
+  const int shared = tiled ? (kBtRows * p_pad + 4) * 2 : 0;
+  kernel<<<static_cast<unsigned>(n_windows), 32, shared, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(predp), static_cast<const uint16_t*>(trace),
       static_cast<const int64_t*>(trace_off), static_cast<const int32_t*>(qlen),
-      static_cast<const int32_t*>(best_rank), n_windows, n_pad, p_pad, q_pad, codes, width,
-      static_cast<int32_t*>(path), static_cast<int32_t*>(plen));
+      static_cast<const int32_t*>(best_rank), n_pad, p_pad, q_pad, width,
+      static_cast<int32_t*>(path), static_cast<int32_t*>(plen), static_cast<int32_t*>(tiles));
   return static_cast<int>(cudaGetLastError());
 }

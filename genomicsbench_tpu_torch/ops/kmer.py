@@ -51,7 +51,7 @@ SENTINEL = 0xFFFFFFFF                  # no k-mer at this position (uint32)
 KEY_BIAS = 1 << 31                     # key = canon ^ 0x80000000 = canon - 2^31
 SENTINEL_KEY = SENTINEL - KEY_BIAS     # INT32_MAX: sorts after every k-mer
 MODE_CODES, MODE_PACK_CODES = 0, 1     # gb_kmer_canonical's inputs
-RING_CAP = 64              # deque entries a thread of gb_kmer_minimizers keeps locally
+MIN_SHARED_WINDOW = 1024   # gb_kmer_minimizers reads hashes ahead in shared memory up to it
 _M32 = 0xFFFFFFFF
 _I64_MAX = (1 << 63) - 1
 # The 32-bit integer instructions each function needs, for the kernels'
@@ -443,8 +443,9 @@ def minimizer_walk(codes: torch.Tensor, lengths: torch.Tensor, k: int, window: i
     """yieldMinimizers over every read of a (B, L) uint8 batch: the raw
     k-mer plane (B, L) int64 (uint32 values, `extract_kmers`) and the
     emission mask (B, L) bool.  CPU tensors take the plain version; CUDA
-    tensors launch gb_kmer_minimizers once (one thread per read; windows
-    above RING_CAP - 1 keep the deque in a device scratch)."""
+    tensors launch gb_kmer_minimizers once (one block per read, the front's
+    chain as a scan over segments of each tile; windows above
+    MIN_SHARED_WINDOW keep the read's hashes in a device scratch)."""
     _check_k(k)
     _check_window(window)
     _check_codes(codes, lengths)
@@ -453,17 +454,15 @@ def minimizer_walk(codes: torch.Tensor, lengths: torch.Tensor, k: int, window: i
     B, L = codes.shape
     raw = torch.empty((B, L), dtype=_I64, device=codes.device)
     mask = torch.empty((B, L), dtype=torch.bool, device=codes.device)
-    scratch_h = scratch_p = None
-    if window + 1 > RING_CAP:
-        scratch_h = torch.empty((window + 1, B), dtype=_I64, device=codes.device)
-        scratch_p = torch.empty((window + 1, B), dtype=_I32, device=codes.device)
     if raw.numel() == 0:
         return raw, mask
+    scratch = None
+    if window > MIN_SHARED_WINDOW:
+        scratch = torch.empty((B, L), dtype=_I64, device=codes.device)
     lib, stream = _launch(codes.device)
     rc = lib.gb_kmer_minimizers(codes.data_ptr(), lengths.data_ptr(), B, L, k, window,
                                 raw.data_ptr(), mask.data_ptr(),
-                                None if scratch_h is None else scratch_h.data_ptr(),
-                                None if scratch_p is None else scratch_p.data_ptr(), stream)
+                                None if scratch is None else scratch.data_ptr(), stream)
     _raise_on(rc, "kmer minimizers")
     minimizer_walk.launches += 1
     return raw, mask

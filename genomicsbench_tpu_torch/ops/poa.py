@@ -24,7 +24,8 @@ uploaded buffer (`PoaTables`), each in two versions:
 * `poa_backtrack`: the walk back over the traces (JAX `_backtrack_batch`,
   :414-505) to path entries `rank*(q_pad+1) + jcode` or, when p_pad <= 7,
   a 4-bit code stream packed eight to a word; on the card
-  `gb_poa_backtrack` (one thread per window), on the CPU
+  `gb_poa_backtrack` (one warp per window, walking from tiles of the
+  traces in shared memory), on the CPU
   `poa_backtrack_reference`, vectorised over windows with one host loop
   over the steps.
 
@@ -705,6 +706,9 @@ def poa_backtrack(t: PoaTables, f: FillResult, codes: bool = False) -> tuple:
         raise ValueError(f"poa_backtrack runs on cuda or cpu tensors, not {dev}")
     from genomicsbench_tpu_torch import _kernels
 
+    if f.trace.data_ptr() % 16 or t.predp.data_ptr() % 4:
+        raise ValueError("the backtrack kernel reads the traces in 16-byte and the "
+                         "predecessor plane in 4-byte pieces: both must be so aligned")
     lib = _kernels.load()
     B, width = t.n_windows, t.path_width(codes)
     path = torch.empty((B, width), dtype=_I32, device=dev)
@@ -716,7 +720,8 @@ def poa_backtrack(t: PoaTables, f: FillResult, codes: bool = False) -> tuple:
         rc = lib.gb_poa_backtrack(t.predp.data_ptr(), f.trace.data_ptr(),
                                   t.trace_off.data_ptr(), t.qlen.data_ptr(),
                                   f.best_rank.data_ptr(), B, t.n_pad, t.p_pad, t.q_pad,
-                                  int(codes), width, path.data_ptr(), plen.data_ptr(), stream)
+                                  int(codes), width, path.data_ptr(), plen.data_ptr(), None,
+                                  stream)
     if rc != 0:
         raise RuntimeError(f"poa backtrack kernel launch failed with cudaError {rc}")
     poa_backtrack.launches += 1

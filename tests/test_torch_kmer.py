@@ -36,9 +36,10 @@ from genomicsbench_tpu_torch.io.seqio import load_fastx_batch
 from genomicsbench_tpu_torch.oracle.kmer import count_kmers_oracle, yield_minimizers_oracle
 from genomicsbench_tpu_torch.utils import offsets_from_lengths
 
-from torch_kmer_cases import (KS, WINDOWS, batch_of, edge_batch, genome_reads,
-                              planted_minimizer_case, planted_uneven_case, poly_a_batch,
-                              write_fasta)
+from torch_kmer_cases import (KS, WINDOWS, batch_of, edge_batch, exclusive_scan_maps,
+                              genome_reads, next_fronts, planted_minimizer_case,
+                              planted_uneven_case, poly_a_batch, segment_maps,
+                              segment_scan_walk, walk_hashes, warmup_split_walk, write_fasta)
 
 # pytest-xdist runs several workers on the CPU's cores; torch's own thread
 # pool in each would oversubscribe them
@@ -219,6 +220,96 @@ def test_minimizer_sites_sorted_genome_equal_jax():
     assert tn == int(n) == stats["sites_n"]
     assert np.array_equal(_np(treps), np.asarray(reps)[:tn].astype(np.int64))
     assert np.array_equal(_np(tgpos), np.asarray(gpos)[:tn].astype(np.int64))
+
+
+# ------------------------------------------ the minimizer kernel's scan, modelled
+# tests/torch_kmer_cases.py `segment_scan_walk` is a numpy model of
+# gb_kmer_minimizers' exact scan (segment maps of w entries, their exclusive
+# scan, a walk of each segment from its entry); it must equal the plain
+# version and the JAX package bit for bit at every segment size.
+SCAN_WINDOWS = (1, 2, 5, 10, 70)
+PERIODIC = batch_of([np.zeros(60, np.uint8), np.tile(np.array([0, 1], np.uint8), 40),
+                     np.tile(np.array([2, 0, 3], np.uint8), 30), np.full(45, 3, np.uint8)])
+
+
+def _segments(w):
+    return sorted({1, max(1, w - 1), w, w + 1, 37})
+
+
+def _plain_walk(seq, lens, k, window):
+    raw, mask = T.minimizer_walk_reference(torch.from_numpy(seq), torch.from_numpy(lens), k,
+                                           window)
+    return _np(raw), _np(mask)
+
+
+@pytest.mark.parametrize("width", [96, 93])
+@pytest.mark.parametrize("window", SCAN_WINDOWS)
+def test_segment_scan_equals_plain_and_jax(window, width):
+    """Segments of 1, w - 1, w, w + 1 and 37 positions on the edge batches,
+    k 5, 15 and 16; JAX's minimizer_mask at k 15."""
+    seq, lens = edge_batch(width)
+    for k in KS:
+        want_raw, want_mask = _plain_walk(seq, lens, k, window)
+        for seg in _segments(window):
+            raw, mask = segment_scan_walk(seq, lens, k, window, seg)
+            assert np.array_equal(raw, want_raw) and np.array_equal(mask, want_mask), (k, seg)
+    jraw, jmask = J.minimizer_mask(jnp.asarray(seq), jnp.asarray(lens), k=15, window=window)
+    for seg in _segments(window):
+        raw, mask = segment_scan_walk(seq, lens, 15, window, seg)
+        assert np.array_equal(raw, np.asarray(jraw)) and np.array_equal(mask, np.asarray(jmask))
+
+
+@pytest.mark.parametrize("window", SCAN_WINDOWS)
+def test_segment_scan_periodic(window):
+    """Homopolymers and repeats of periods 2 and 3, where hashes tie and the
+    front is path dependent, against the plain version and JAX (k 5)."""
+    seq, lens = PERIODIC
+    want_raw, want_mask = _plain_walk(seq, lens, 5, window)
+    jraw, jmask = J.minimizer_mask(jnp.asarray(seq), jnp.asarray(lens), k=5, window=window)
+    assert np.array_equal(want_mask, np.asarray(jmask))
+    for seg in _segments(window):
+        raw, mask = segment_scan_walk(seq, lens, 5, window, seg)
+        assert np.array_equal(raw, want_raw) and np.array_equal(mask, want_mask), seg
+
+
+def test_warmup_split_differs_on_periodic():
+    """A split of the read that warms each segment up over the w positions
+    before it is not exact: on a homopolymer and on ACAC... it keeps another
+    phase of the fronts.  The scan over the same segments is exact."""
+    seq, lens = PERIODIC
+    for window, seg in ((5, 7), (10, 12)):
+        _, want = _plain_walk(seq, lens, 5, window)
+        _, warm = warmup_split_walk(seq, lens, 5, window, seg)
+        assert not np.array_equal(warm[0], want[0])          # poly-A
+        assert not np.array_equal(warm[1], want[1])          # ACAC...
+        _, scan = segment_scan_walk(seq, lens, 5, window, seg)
+        assert np.array_equal(scan, want)
+
+
+def test_segment_maps_scan_equals_chain():
+    """The Hillis-Steele scan of the segment maps gives each segment the
+    entry that applying the maps one after another gives (associativity),
+    on a genome-sampled read at Flye's window and the kernel's 16-position
+    segments."""
+    seq, lens = GENOME
+    raw, hashes, live = walk_hashes(seq[:4], lens[:4], 15)
+    for b in range(4):
+        nxt = next_fronts(hashes[b], live[b], 5)
+        maps = segment_maps(nxt, seq.shape[1], 5, 16)
+        entries = exclusive_scan_maps(maps)[:, 0]
+        e = 0
+        for i, got in enumerate(entries):
+            assert got == e, (b, i)
+            e = maps[i, e]
+
+
+def test_segment_scan_genome_batch():
+    """The genome batch (48 reads of 1,500 bases) at Flye's window, in the
+    kernel's 16-position segments, against the plain version."""
+    seq, lens = GENOME
+    want_raw, want_mask = _plain_walk(seq, lens, 15, 5)
+    raw, mask = segment_scan_walk(seq, lens, 15, 5, 16)
+    assert np.array_equal(raw, want_raw) and np.array_equal(mask, want_mask)
 
 
 # ------------------------------------------------------------------- indexes

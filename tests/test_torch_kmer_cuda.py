@@ -19,9 +19,11 @@ from genomicsbench_tpu_torch.cli import main as torch_cli_main
 from genomicsbench_tpu_torch.oracle.kmer import count_kmers_oracle, yield_minimizers_oracle
 from genomicsbench_tpu_torch.utils import offsets_from_lengths
 
-from torch_kmer_cases import KS, WINDOWS, edge_batch, genome_reads, poly_a_batch, write_fasta
+from torch_kmer_cases import (KS, WINDOWS, batch_of, edge_batch, genome_reads, poly_a_batch,
+                              write_fasta)
 
 pytestmark = pytest.mark.cuda
+TILE = 2048                 # positions a tile of gb_kmer_minimizers (csrc/kmer.cu kMinTile)
 CASES = {"edge": edge_batch(), "edge93": edge_batch(93),
          "genome": genome_reads(64, 3_000, genome_len=40_000, seed=9)}
 
@@ -69,7 +71,7 @@ def test_poly_a_freqs_saturate(card):
 @pytest.mark.parametrize("window", WINDOWS + (63, 64, 70))
 @pytest.mark.parametrize("k", KS)
 def test_minimizers_and_sites_match_plain(card, k, window):
-    """Windows of 64 and more keep the deque in the device scratch."""
+    """Windows longer than a 96-base read among them."""
     for seq, lens in (CASES["edge"], CASES["edge93"]):
         codes, lt = _on(card, seq, lens)
         raw, mask = T.minimizer_walk(codes, lt, k, window)
@@ -118,3 +120,60 @@ def test_cli_card_equals_cpu(card, use_min, tmp_path, capfd):
                         "--device", dev])
         out.append(capfd.readouterr().err.split("sec")[1])
     assert out[0] == out[1]
+
+
+def _walk_equal(dev, seq, lens, k, window):
+    codes, lt = _on(dev, seq, lens)
+    raw, mask = T.minimizer_walk(codes, lt, k, window)
+    wraw, wmask = T.minimizer_walk_reference(codes, lt, k, window)
+    assert torch.equal(raw, wraw) and torch.equal(mask, wmask), (k, window)
+
+
+@pytest.mark.parametrize("window", [1, 2, 5, 10, 70])
+def test_minimizer_tile_edges(card, window):
+    """Reads whose last k-mer, and whose length, fall at every offset of
+    the window around the kernel's tile edges (TILE positions a tile), over
+    random sequence, a homopolymer and a dinucleotide repeat, with random
+    codes 0..4 past each read."""
+    rng = np.random.default_rng(window)
+    reads = []
+    for edge in (TILE, 2 * TILE):
+        for d in range(-window - 1, window + 2):
+            n = max(0, edge + 15 + d)
+            reads += [rng.integers(0, 4, n).astype(np.uint8), np.zeros(n, np.uint8),
+                      np.tile(np.array([0, 1], np.uint8), n // 2 + 1)[:n]]
+    seq, lens = batch_of(reads, pad=4, seed=window)
+    _walk_equal(card, seq, lens, 15, window)
+
+
+def test_minimizer_long_read(card):
+    """A 100,000-base read (49 tiles) beside a poly-A read of the same
+    length and a short read, at Flye's window."""
+    rng = np.random.default_rng(3)
+    seq, lens = batch_of([rng.integers(0, 4, 100_000).astype(np.uint8),
+                          np.zeros(100_000, np.uint8), rng.integers(0, 4, 900).astype(np.uint8)])
+    _walk_equal(card, seq, lens, 15, 5)
+
+
+def test_minimizer_periodic_all_windows(card):
+    """Periodic sequence (periods 1, 2, 3 and 5), where many hashes tie and
+    the front is path dependent, across one tile edge, at every window
+    from 1 to 70."""
+    rng = np.random.default_rng(8)
+    reads = []
+    for period in (1, 2, 3, 5):
+        unit = rng.integers(0, 4, period).astype(np.uint8)
+        reads += [np.tile(unit, 2200 // period + 1)[:n] for n in (2200, TILE + 14)]
+    seq, lens = batch_of(reads)
+    for window in range(1, 71):
+        _walk_equal(card, seq, lens, 15, window)
+
+
+@pytest.mark.parametrize("window", [T.MIN_SHARED_WINDOW, T.MIN_SHARED_WINDOW + 1, 3000])
+def test_minimizer_scratch_windows(card, window):
+    """Windows past MIN_SHARED_WINDOW read the hashes from the device
+    scratch; the last window that reads them from shared memory beside it."""
+    rng = np.random.default_rng(window)
+    seq, lens = batch_of([rng.integers(0, 4, 6000).astype(np.uint8), np.zeros(5000, np.uint8),
+                          np.tile(np.array([0, 1, 1], np.uint8), 1500)], pad=4)
+    _walk_equal(card, seq, lens, 15, window)

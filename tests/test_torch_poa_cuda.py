@@ -146,12 +146,68 @@ def test_empty_slot_before_a_valid_one(card):
     _kernels_vs_plain(poa.upload_windows(basep, shifted, n, seq, qlen, card), ALT)
 
 
-@pytest.mark.parametrize("p_pad", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("p_pad", [1, 2, 4, 8, 12, 16])
 def test_slot_counts(card, p_pad):
-    """p_pad 1, 2, 4 and 8 take the unrolled slot loops, 16 the general
-    one."""
+    """p_pad 1, 2, 4 and 8 take the fill's unrolled slot loops, 12 and 16
+    the general one (and the int32 path entries only)."""
     rng = np.random.default_rng(40 + p_pad)
     dags = [cases.random_dag(rng, int(rng.integers(20, 120)), p_pad, int(rng.integers(0, 900)))
             for _ in range(5)]
     _kernels_vs_plain(poa.upload_windows(*cases.dag_planes(dags, 256, p_pad, 1024), card),
                       PoaParams())
+
+
+# gb_poa_backtrack's trace tile: rows and columns (csrc/poa.cu kBtRows,
+# kBtCols), and the largest p_pad whose predecessor slots the tile holds
+BT_ROWS, BT_COLS, BT_PRED_CAP = 64, 64, 32
+
+
+@pytest.mark.parametrize("dist", [BT_ROWS - 1, BT_ROWS, BT_ROWS + 1, 3 * BT_ROWS])
+def test_backtrack_far_predecessor(card, dist):
+    """Chains whose nodes read a predecessor exactly `dist` ranks back as
+    well as the last one: where the walk takes the far one it leaves the
+    tile through its first row and loads the next tile there."""
+    rng = np.random.default_rng(dist)
+    dags = [cases.distance_dag(rng, 4 * BT_ROWS + 20, [dist], ql) for ql in (200, 60, 3)]
+    _kernels_vs_plain(poa.upload_windows(*cases.dag_planes(dags, 512, 4, 256), card), ALT)
+
+
+def test_backtrack_long_query_gap(card):
+    """A query with BT_COLS + 1 and 3 * BT_COLS bases inserted into a chain's
+    sequence: the walk's query-gap runs cross the tile's first column,
+    and its next node step loads a tile there."""
+    rng = np.random.default_rng(21)
+    dags = []
+    for ins in (BT_COLS + 1, 3 * BT_COLS):
+        basep, preds, _ = cases.distance_dag(rng, 120, [], 0)
+        bases = (basep & 3).astype(np.int64)
+        query = np.concatenate([bases[:60], rng.integers(0, 4, ins), bases[60:]])
+        dags.append((basep, preds, query))
+    t = poa.upload_windows(*cases.dag_planes(dags, 256, 2, 512), card)
+    _kernels_vs_plain(t, ALT)
+    f = poa.poa_fill_reference(t, ALT)
+    path, plen = poa.poa_backtrack_reference(t, f, False)
+    for b, ins in enumerate((BT_COLS + 1, 3 * BT_COLS)):
+        gap = (path[b, :plen[b]] // (t.q_pad + 1) == 0).cpu().numpy()
+        runs = np.diff(np.flatnonzero(np.diff(np.concatenate([[0], gap, [0]]))))[::2]
+        assert runs.max() >= ins, (ins, runs.max())
+
+
+@pytest.mark.parametrize("p_pad", [BT_PRED_CAP, BT_PRED_CAP + 1])
+def test_backtrack_predecessor_slots_off_tile(card, p_pad):
+    """The last p_pad whose predecessor slots the tile holds, and the first
+    whose slots the walk loads from the plane."""
+    rng = np.random.default_rng(p_pad)
+    dags = [cases.random_dag(rng, int(rng.integers(40, 200)), p_pad, int(rng.integers(0, 400)))
+            for _ in range(3)]
+    _kernels_vs_plain(poa.upload_windows(*cases.dag_planes(dags, 256, p_pad, 512), card),
+                      PoaParams())
+
+
+@pytest.mark.parametrize("n_windows", [1, 33])
+def test_backtrack_slab_sizes(card, n_windows):
+    """A slab of one window and one of 33 (one block a window)."""
+    rng = np.random.default_rng(n_windows)
+    dags = [cases.random_dag(rng, int(rng.integers(1, 150)), 3, int(rng.integers(0, 300)))
+            for _ in range(n_windows)]
+    _kernels_vs_plain(poa.upload_windows(*cases.dag_planes(dags, 256, 4, 384), card), ALT)

@@ -135,3 +135,147 @@ def write_fasta(path, codes, lengths):
     with open(path, "w") as f:
         for i, (c, n) in enumerate(zip(codes, lengths)):
             f.write(f">read_{i}\n{letters[c[:n]].tobytes().decode()}\n")
+
+
+# --------------------------------------------------- the minimizer walk's scan
+# A numpy model of gb_kmer_minimizers' exactness argument (csrc/kmer.cu).
+# The deque's front after step p is always a position of the window's
+# minimum hash, so it moves only when a strictly smaller hash enters (to
+# that position) or when step front + w evicts it (to the last minimum of
+# the window front + 1 .. front + w): its next position depends on its
+# position alone.  The fronts are the chain of `next_fronts` from position
+# 0, and the mask is the set of them.  A segment of `seg` positions maps
+# its entry (the first front at or past its start: one of w offsets, or
+# none) to its exit (the first front at or past its end); the maps compose
+# associatively, so an exclusive scan of them gives every segment's entry,
+# and a walk of each segment from its entry marks its fronts.
+NO_FRONT = np.iinfo(np.int64).max
+
+
+def _splitmix_np(v):
+    z = v.astype(np.uint64) + np.uint64(0x9E3779B97F4A7C15)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+def _canonical_np(x, k):
+    m = np.uint64((1 << (2 * k)) - 1)
+    y = ~x.astype(np.uint64) & m
+    rc = np.zeros_like(y)
+    for _ in range(k):
+        rc = (rc << np.uint64(2)) | (y & np.uint64(3))
+        y >>= np.uint64(2)
+    return np.minimum(x.astype(np.uint64), rc)
+
+
+def walk_hashes(codes, lengths, k):
+    """(raw k-mers (B, L) int64, columns read modulo L as jnp.roll does;
+    hashes (B, L) uint64 of the canonical k-mers; live (B,) steps)."""
+    B, L = codes.shape
+    x = np.zeros((B, L), np.uint64)
+    for j in range(k):
+        x += np.roll(codes, -j, 1).astype(np.uint64) << np.uint64(2 * (k - 1 - j))
+    raw = x & np.uint64(0xFFFFFFFF)
+    live = np.asarray(lengths, np.int64) - k
+    return raw.astype(np.int64), _splitmix_np(_canonical_np(raw, k)), live
+
+
+def next_fronts(h, live, w):
+    """The front's next position from each position s < live: the first q
+    in s+1 .. s+w with h[q] < h[s], else the last minimum of s+1 .. s+w;
+    NO_FRONT where the step that would move it is not live."""
+    nxt = np.full(len(h), NO_FRONT, np.int64)
+    for s in range(max(live, 0)):
+        best, to = None, NO_FRONT
+        for q in range(s + 1, s + w + 1):
+            if q >= live:
+                to = NO_FRONT
+                break
+            if h[q] < h[s]:
+                to = q
+                break
+            if best is None or h[q] <= best:
+                best, to = h[q], q
+        nxt[s] = to
+    return nxt
+
+
+def segment_maps(nxt, L, w, seg):
+    """(n_seg, w + 1) int64: segment i's exit offset (from its end) for each
+    entry offset (from its start), offset w standing for no front."""
+    n_seg = -(-L // seg)
+    maps = np.full((n_seg, w + 1), w, np.int64)
+    for i in range(n_seg):
+        a, end = i * seg, (i + 1) * seg
+        for o in range(w):
+            x = a + o
+            while x < end:
+                x = nxt[x] if x < len(nxt) else NO_FRONT
+            maps[i, o] = w if x == NO_FRONT else x - end
+    return maps
+
+
+def exclusive_scan_maps(maps):
+    """Each segment's entry map: the composition of the maps before it
+    (identity first), by a Hillis-Steele scan, log2(n_seg) rounds."""
+    n_seg, width = maps.shape
+    incl = maps.copy()
+    d = 1
+    while d < n_seg:
+        nxt = incl.copy()
+        nxt[d:] = np.take_along_axis(incl[d:], incl[:-d], 1)   # later after earlier
+        incl, d = nxt, 2 * d
+    excl = np.empty_like(incl)
+    excl[0] = np.arange(width)
+    excl[1:] = incl[:-1]
+    return excl
+
+
+def segment_scan_walk(codes, lengths, k, window, seg):
+    """The minimizer walk's (raw (B, L) int64, mask (B, L) bool) by the
+    segment-map scan, segments of `seg` positions."""
+    codes = np.asarray(codes, np.uint8)
+    B, L = codes.shape
+    w = window
+    raw, hashes, live = walk_hashes(codes, lengths, k)
+    mask = np.zeros((B, L), bool)
+    for b in range(B):
+        nxt = next_fronts(hashes[b], live[b], w)
+        entries = exclusive_scan_maps(segment_maps(nxt, L, w, seg))[:, 0 if live[b] > 0 else w]
+        for i, o in enumerate(entries):
+            x = NO_FRONT if o == w else i * seg + o
+            while x < (i + 1) * seg:
+                mask[b, x] = True
+                x = nxt[x]
+    return raw, mask
+
+
+def warmup_split_walk(codes, lengths, k, window, seg):
+    """The split that the scan replaces: each segment's steps walked by the
+    plain recurrence from a fresh deque `window` positions before the
+    segment, as if the read began there.  Not exact: on periodic sequence
+    the fresh walk keeps another phase of the fronts."""
+    codes = np.asarray(codes, np.uint8)
+    B, L = codes.shape
+    w = window
+    raw, hashes, live = walk_hashes(codes, lengths, k)
+    mask = np.zeros((B, L), bool)
+    for b in range(B):
+        h = hashes[b]
+        for a in range(0, L, seg):
+            s0 = max(0, a - w)
+            front = s0
+            for p in range(s0, min(a + seg, live[b])):
+                lo = max(s0, p - w + 1)
+                win = h[lo:p + 1]
+                m = win.min()
+                earliest = lo + int(np.argmax(win == m))
+                latest = lo + len(win) - 1 - int(np.argmax(win[::-1] == m))
+                new = latest if front <= p - w else max(front, earliest)
+                if p - s0 < w:
+                    new = min(new, earliest)
+                front = new
+                if p >= a:
+                    mask[b, front] = True
+    return raw, mask
