@@ -44,7 +44,7 @@ SOURCES = {
                 {name: [_P] * 11 + [_L, _P, _L, _P] + [_I] * 3 + [_P] * 2
                  for name in ("gb_pairhmm_f32", "gb_pairhmm_f64")}),
     "abea": (CSRC / "abea.cu",
-             {"gb_abea_fill": [_P] * 7 + [_L] + [_P] * 6,
+             {"gb_abea_fill": [_P] * 8 + [_L] + [_P] * 6,
               "gb_abea_backtrack": [_P] * 11 + [_L] + [_P] * 2}),
     "poa": (CSRC / "poa.cu",
             {"gb_poa_fill": [_P] * 7 + [_L] + [_I] * 12 + [_P] * 7,
@@ -55,7 +55,7 @@ SOURCES = {
              "gb_fmi_seed3": [_P, _P, _I, _P, _L] + [_I] * 9 + [_P] * 2,
              "gb_fmi_extend": [_P, _P, _I] + [_P] * 5 + [_L] + [_I] * 6 + [_P] * 2}),
     "meth": (CSRC / "meth.cu",
-             {"gb_meth_forward": [_P] * 9 + [_L, _I, _P, _P]}),
+             {"gb_meth_forward": [_P] * 11 + [_L, _I, _P, _P]}),
     "kmer": (CSRC / "kmer.cu",
              {"gb_kmer_canonical": [_P, _P, _L, _L, _I, _I, _P, _P],
               "gb_kmer_runs": [_P, _L, _P, _P],

@@ -16,7 +16,9 @@ in two versions:
 * `abea_fill`: the adaptive banded fill, band after band, with the 2-bit
   traces, each band's lower-left event index and the best (event, last
   k-mer) cell; on the card the hand-written kernel `gb_abea_fill` of
-  `csrc/abea.cu` (one warp per read), on the CPU `abea_fill_reference`,
+  `csrc/abea.cu` (one warp per read, the band's emission inputs carried in
+  registers, the reads taken longest first), on the CPU
+  `abea_fill_reference`,
   JAX's step function (abea.py:298-406) over (B, 100) tensors with one
   host loop over the bands;
 * `abea_backtrack`: the walk back over the traces to the (k-mer, event)
@@ -61,10 +63,14 @@ N_PARAMS = 6      # per read: scale, shift, lp_skip, lp_stay, lp_step, lp_trim
 # n_events + n_kmers + 2 or more, a walk at most n_events + n_kmers - 1),
 # and the sum settles within two
 TAIL_STEPS = 3
-# Operations per band cell of the fill kernel, by type (csrc/abea.cu), for
-# its bound
-ABEA_FP32_OPS_PER_CELL = 19
-ABEA_INT32_OPS_PER_CELL = 11
+# Operations of the fill by type, for its bound (csrc/abea.cu): per cell
+# inside a read's matrix, per k-mer (its emission terms, once) and per
+# event
+ABEA_FP32_OPS_PER_CELL = 16
+ABEA_INT32_OPS_PER_CELL = 8
+ABEA_FP32_OPS_PER_KMER = 3
+ABEA_INT32_OPS_PER_KMER = 2
+ABEA_INT32_OPS_PER_EVENT = 1
 # QC gates (align.c:514-532)
 MIN_AVG_LOG_EMISSION = -5.0
 MAX_GAP_THRESHOLD = 50
@@ -191,8 +197,10 @@ class ReadTables:
     [e_off[b], e_off[b+1]) of `events`, its bands (n_kmers + n_events, after
     the two initial ones) and its pair slot at [band_off[b], band_off[b+1]);
     `params` (B, 6): scale, shift, lp_skip, lp_stay, lp_step, lp_trim;
-    `model` (3, 4096): level mean, stdv and log stdv.  `host` holds numpy
-    copies of the three offset arrays, which the wrappers check."""
+    `model` (3, 4096): level mean, stdv and log stdv; `order` (B,) int32:
+    the reads by band count, longest first (`longest_first`), the order the
+    fill kernel starts them in.  `host` holds numpy copies of the three
+    offset arrays and of `order`, which the wrappers check."""
 
     ranks: torch.Tensor
     events: torch.Tensor
@@ -201,6 +209,7 @@ class ReadTables:
     band_off: torch.Tensor
     params: torch.Tensor
     model: torch.Tensor
+    order: torch.Tensor
     host: dict
 
     @property
@@ -251,6 +260,12 @@ def transition_params(n_kmers, n_events, scalings) -> np.ndarray:
     return out
 
 
+def longest_first(band_off) -> np.ndarray:
+    """The reads by band count, longest first (ties in read order), as
+    int32: the order the fill kernel starts its warps in."""
+    return np.argsort(-np.diff(np.asarray(band_off, np.int64)), kind="stable").astype(np.int32)
+
+
 def _marshal(sequences, event_means, model_mean, model_stdv, scalings):
     """The batch as one host byte buffer for one upload: (buffer, {name:
     (byte offset, dtype, length)}, host copies of the offsets)."""
@@ -280,7 +295,8 @@ def _marshal(sequences, event_means, model_mean, model_stdv, scalings):
 
     fields = [("ranks", np.int32, NK), ("events", np.float32, NE), ("k_off", np.int64, B + 1),
               ("e_off", np.int64, B + 1), ("band_off", np.int64, B + 1),
-              ("params", np.float32, B * N_PARAMS), ("model", np.float32, 3 * N_MODEL)]
+              ("params", np.float32, B * N_PARAMS), ("model", np.float32, 3 * N_MODEL),
+              ("order", np.int32, B)]
     layout, nbytes = {}, 0
     for name, dt, length in fields:
         layout[name] = (nbytes, dt, length)
@@ -312,7 +328,9 @@ def _marshal(sequences, event_means, model_mean, model_stdv, scalings):
     model[0] = model_mean.astype(np.float32)
     model[1] = model_stdv.astype(np.float32)
     model[2] = np.log(model_stdv.astype(np.float64)).astype(np.float32)
-    return buf, layout, dict(k_off=k_off, e_off=e_off, band_off=band_off)
+    order = view("order")
+    order[:] = longest_first(band_off)
+    return buf, layout, dict(k_off=k_off, e_off=e_off, band_off=band_off, order=order.copy())
 
 
 def _upload(buf, layout, host, device) -> ReadTables:
@@ -363,7 +381,7 @@ def _check_tables(t: ReadTables) -> None:
     for name, dtype, shape in (("ranks", _I32, (NK,)), ("events", _F32, (NE,)),
                                ("k_off", _I64, (B + 1,)), ("e_off", _I64, (B + 1,)),
                                ("band_off", _I64, (B + 1,)), ("params", _F32, (B, N_PARAMS)),
-                               ("model", _F32, (3, N_MODEL))):
+                               ("model", _F32, (3, N_MODEL)), ("order", _I32, (B,))):
         _check_tensor(name, getattr(t, name), dev, dtype, shape)
     h = {k: np.asarray(t.host.get(k)) for k in ("k_off", "e_off", "band_off")}
     for name, total in (("k_off", NK), ("e_off", NE), ("band_off", NK + NE)):
@@ -377,6 +395,10 @@ def _check_tables(t: ReadTables) -> None:
         raise ValueError("band_off must count n_kmers + n_events bands per read")
     if (np.diff(h["k_off"]) < 1).any():
         raise ValueError("every read needs at least one k-mer")
+    order = np.asarray(t.host.get("order"))
+    if order.shape != (B,) or (B and (order.min() < 0 or order.max() >= B
+                                      or (np.bincount(order, minlength=B) != 1).any())):
+        raise ValueError(f"order must be a permutation of the {B} reads")
 
 
 def _check_fill(t: ReadTables, f: FillResult) -> None:
@@ -530,9 +552,9 @@ def abea_fill(t: ReadTables) -> FillResult:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gb_abea_fill(t.ranks.data_ptr(), t.events.data_ptr(), t.k_off.data_ptr(),
                               t.e_off.data_ptr(), t.band_off.data_ptr(), t.params.data_ptr(),
-                              t.model.data_ptr(), B, f.traces.data_ptr(), f.bll_e.data_ptr(),
-                              f.trace1.data_ptr(), f.best.data_ptr(), f.best_ev.data_ptr(),
-                              stream)
+                              t.model.data_ptr(), t.order.data_ptr(), B, f.traces.data_ptr(),
+                              f.bll_e.data_ptr(), f.trace1.data_ptr(), f.best.data_ptr(),
+                              f.best_ev.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"abea fill kernel launch failed with cudaError {rc}")
     abea_fill.launches += 1

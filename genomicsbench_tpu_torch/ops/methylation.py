@@ -12,8 +12,9 @@ flanks, the NumPy oracle in float32 and float64, `find_event_bounds`,
 
 Device part: one function, `meth_forward`, the forward score of every
 (CpG group, sequence variant) instance of a batch, in two versions: on the
-card the hand-written kernel `gb_meth_forward` of `csrc/meth.cu` (one warp
-per instance), on the CPU `meth_forward_reference`, JAX's `_phmm_meth_scan`
+card the hand-written kernel `gb_meth_forward` of `csrc/meth.cu` (each
+instance on a group of 1 to 32 lanes sized by its k-mer count, up to 8
+blocks a lane), on the CPU `meth_forward_reference`, JAX's `_phmm_meth_scan`
 (ops/methylation.py:241-307) over (G, K) tensors with one host loop over
 the event rows.
 
@@ -57,6 +58,8 @@ NEG_INF = -np.inf
 
 NEG = -1e30             # the kernel's sentinel (JAX ops/methylation.py:247)
 MAX_BLOCKS = 256        # k-mer blocks of one instance: 8 per lane of a warp
+LANE_BLOCKS = 8         # the kernel's blocks per lane at most
+N_LANE_GROUPS = 6       # lane groups of 1, 2, 4, 8, 16 and 32 lanes
 N_PARAMS = 16           # per read: scale shift var log_var, 10 transitions, 2 pad
 TRANSITIONS = ("lp_mk", "lp_mb", "lp_mm_self", "lp_mm_next", "lp_bb", "lp_bk",
                "lp_bm_next", "lp_bm_self", "lp_kk", "lp_km")
@@ -314,8 +317,11 @@ class MethTables:
     ev_last[g] of `events` (its rows, in that order), with the scalings and
     transitions of row read[g] of `params` (R, 16).  `model` (3, 15625):
     the CpG model's level means, stdvs and float32 log stdvs; `flank`: the
-    `flank_table` of the longest instance.  `host` holds numpy copies of
-    rank_off, ev_first, ev_last and read, which the wrapper checks."""
+    `flank_table` of the longest instance; `order` (G,) int32: the
+    instances by lane group and length (`lane_group_order`), the kernel's
+    slots.  `host` holds numpy copies of rank_off, ev_first, ev_last, read,
+    order and class_n (the instances of each lane-group size in `order`),
+    which the wrapper checks."""
 
     ranks: torch.Tensor
     rank_off: torch.Tensor
@@ -326,6 +332,7 @@ class MethTables:
     params: torch.Tensor
     model: torch.Tensor
     flank: torch.Tensor
+    order: torch.Tensor
     host: dict
 
     @property
@@ -335,7 +342,8 @@ class MethTables:
 
 _FIELDS = (("ranks", np.int16), ("rank_off", np.int64), ("ev_first", np.int64),
            ("ev_last", np.int64), ("read", np.int32), ("events", np.float32),
-           ("params", np.float32), ("model", np.float32), ("flank", np.float32))
+           ("params", np.float32), ("model", np.float32), ("flank", np.float32),
+           ("order", np.int32))
 
 
 def _model_table(model_mean, model_stdv) -> np.ndarray:
@@ -345,6 +353,28 @@ def _model_table(model_mean, model_stdv) -> np.ndarray:
         raise ValueError(f"the CpG model must have {NUM_KMER_METH} k-mers, got "
                          f"{mean.shape} and {stdv.shape}")
     return np.stack([mean, stdv, np.log(stdv)])
+
+
+def lane_groups(n_kmers) -> np.ndarray:
+    """Each instance's lane-group class c: the kernel gives an instance of K
+    k-mer blocks g = 2^c lanes, the fewest with ceil(K / g) <= 8 blocks a
+    lane (c = 6 for K past MAX_BLOCKS, which the kernel refuses)."""
+    most = LANE_BLOCKS << np.arange(N_LANE_GROUPS)          # 8, 16, ..., 256
+    return np.searchsorted(most, np.asarray(n_kmers, np.int64), "left")
+
+
+def lane_group_order(rank_off, ev_first, ev_last) -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's slots: the instances sorted by lane group, and within
+    it by rows x blocks a lane, longest first (ties in instance order), so
+    that the instances sharing a warp run about as long as each other.
+    Returns (order as int32, the count of each of the N_LANE_GROUPS classes
+    as int64)."""
+    nk = np.diff(np.asarray(rank_off, np.int64))
+    cls = np.minimum(lane_groups(nk), N_LANE_GROUPS - 1)
+    chunk = -(-nk // (1 << cls))
+    rows = np.abs(np.asarray(ev_last, np.int64) - np.asarray(ev_first, np.int64)) + 1
+    order = np.lexsort((-(rows * chunk), cls)).astype(np.int32)
+    return order, np.bincount(cls, minlength=N_LANE_GROUPS).astype(np.int64)
 
 
 def upload_instances(ranks, rank_off, ev_first, ev_last, read, events, params, model_mean,
@@ -359,10 +389,11 @@ def upload_instances(ranks, rank_off, ev_first, ev_last, read, events, params, m
     ev_first = np.asarray(ev_first, np.int64)
     ev_last = np.asarray(ev_last, np.int64)
     n_rows = np.abs(ev_last - ev_first) + 1
+    order, class_n = lane_group_order(rank_off, ev_first, ev_last)
     arrays = dict(ranks=ranks, rank_off=rank_off, ev_first=ev_first, ev_last=ev_last,
                   read=read, events=events, params=params,
                   model=_model_table(model_mean, model_stdv),
-                  flank=flank_table(int(n_rows.max()) if len(n_rows) else 1))
+                  flank=flank_table(int(n_rows.max()) if len(n_rows) else 1), order=order)
     layout, nbytes = {}, 0
     for name, dt in _FIELDS:
         a = np.asarray(arrays[name])
@@ -383,7 +414,8 @@ def upload_instances(ranks, rank_off, ev_first, ev_last, read, events, params, m
                                                            ).view(shape)
     rank_range = (int(ranks.min()), int(ranks.max())) if ranks.size else (0, 0)
     tables = MethTables(**t, host=dict(rank_off=rank_off, ev_first=ev_first, ev_last=ev_last,
-                                       read=np.asarray(read, np.int32), rank_range=rank_range))
+                                       read=np.asarray(read, np.int32), rank_range=rank_range,
+                                       order=order, class_n=class_n))
     if stats is not None:
         if pinned:
             torch.cuda.synchronize(dev)
@@ -407,7 +439,7 @@ def _check_tables(t: MethTables) -> None:
                                ("read", _I32, (G,)), ("events", _F32, (NE,)),
                                ("params", _F32, (R, N_PARAMS)),
                                ("model", _F32, (3, NUM_KMER_METH)),
-                               ("flank", _F32, (t.flank.numel(),))):
+                               ("flank", _F32, (t.flank.numel(),)), ("order", _I32, (G,))):
         _check_tensor(name, getattr(t, name), dev, dtype, shape)
     h = t.host
     off = np.asarray(h.get("rank_off"))
@@ -434,6 +466,15 @@ def _check_tables(t: MethTables) -> None:
     if G and t.flank.numel() < rows.max():
         raise ValueError(f"the flank table holds {t.flank.numel()} rows, an instance "
                          f"{int(rows.max())}")
+    order = np.asarray(h.get("order"))
+    class_n = np.asarray(h.get("class_n"))
+    if order.shape != (G,) or (G and (order.min() < 0 or order.max() >= G
+                                      or (np.bincount(order, minlength=G) != 1).any())):
+        raise ValueError(f"order must be a permutation of the {G} instances")
+    if class_n.shape != (N_LANE_GROUPS,) or not np.array_equal(
+            lane_groups(nk)[order], np.repeat(np.arange(N_LANE_GROUPS), class_n)):
+        raise ValueError("order must take the instances by lane group, class_n counting "
+                         "each group's")
 
 
 # ----------------------------------------------------------------- forward
@@ -545,11 +586,12 @@ def meth_forward(t: MethTables, flags=HAF_ALLOW_PRE_CLIP | HAF_ALLOW_POST_CLIP):
         return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        class_n = np.ascontiguousarray(t.host["class_n"], np.int64)
         rc = lib.gb_meth_forward(t.ranks.data_ptr(), t.rank_off.data_ptr(),
                                  t.ev_first.data_ptr(), t.ev_last.data_ptr(),
                                  t.read.data_ptr(), t.events.data_ptr(), t.params.data_ptr(),
-                                 t.model.data_ptr(), t.flank.data_ptr(), G, int(flags),
-                                 out.data_ptr(), stream)
+                                 t.model.data_ptr(), t.flank.data_ptr(), t.order.data_ptr(),
+                                 class_n.ctypes.data, G, int(flags), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"meth forward kernel launch failed with cudaError {rc}")
     meth_forward.launches += 1

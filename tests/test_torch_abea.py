@@ -42,7 +42,7 @@ from genomicsbench_tpu_torch.ops import eventalign as ea
 from torch_abea_cases import (MAIN_SAMPLE, MAIN_SAMPLE_FAILED, MAIN_SAMPLE_SHA256, _model,
                               bench_abea_reads, check_events, edge_cases,
                               eventalign_reads_case, load_align_golden, load_events_golden,
-                              pairs_digest)
+                              pairs_digest, sliding_window, window_fill_codes)
 
 # pytest-xdist runs several workers on the CPU's cores; torch's own thread
 # pool in each would oversubscribe them and slow the run many times over
@@ -214,6 +214,92 @@ def test_fill_and_backtrack_against_jax_scans(label):
     np.testing.assert_array_equal(hdr[:, 2], max_gap)
     np.testing.assert_allclose(hdr[:, 1].view(np.float32), sum_em, rtol=BEST_RTOL, atol=0)
     np.testing.assert_array_equal(hdr[:, 3].view(np.float32), f.best.numpy())
+
+
+@functools.lru_cache(maxsize=None)
+def _window_run(label):
+    """The plain fill of a named input set (or "main64", the main path's
+    first 64 reads) and `sliding_window` over its corners: (inputs, tables,
+    fill, event indices, k-mer indices)."""
+    if label == "main64":
+        seqs, evs, sc = bench_abea_reads(64)
+        model = _model()
+        t = abea.upload_reads(seqs, evs, *model, sc, "cpu")
+        f = abea.abea_fill(t)
+    else:
+        (seqs, evs, sc, model), t, f, _ = _port_run(label)
+    ev_idx, km_idx = sliding_window(f.bll_e.numpy(), t.host["band_off"],
+                                    np.diff(t.host["k_off"]))
+    return (seqs, evs, sc, model), t, f, ev_idx, km_idx
+
+
+WINDOW_BATCHES = ["golden"] + sorted(EDGES) + ["main64"]
+
+
+@pytest.mark.parametrize("label", WINDOW_BATCHES)
+def test_sliding_window_gives_each_cell_its_event_and_kmer(label):
+    """The fill kernel's window of emission inputs (its look-ahead, its
+    in-lane moves and lane-edge shuffles on right and down moves), modelled
+    in numpy over the plain version's band corners: at every band of every
+    read, cell o holds event bll_e - o and k-mer (band - bll_e) + o."""
+    _, t, f, ev_idx, km_idx = _window_run(label)
+    band_off = t.host["band_off"]
+    band = np.concatenate([np.arange(n) for n in np.diff(band_off)])
+    be = f.bll_e.numpy().astype(np.int64)
+    o = np.arange(abea.BW)
+    np.testing.assert_array_equal(ev_idx, be[:, None] - o)
+    np.testing.assert_array_equal(km_idx, (band - be)[:, None] + o)
+
+
+@pytest.mark.parametrize("label", WINDOW_BATCHES)
+def test_window_emissions_equal_plain_bit_for_bit(label):
+    """A numpy fill that computes each k-mer's emission terms once and
+    gathers them at the window's indices, as the kernel does, gives the
+    plain version's trace codes and best score bit for bit (on the main
+    path's first 4 reads)."""
+    (seqs, evs, sc, model), t, f, ev_idx, km_idx = _window_run(label)
+    band_off = t.host["band_off"]
+    got = _unpack(f.traces.numpy().reshape(-1, abea.BW // 4))
+    for b in range(min(len(seqs), 4 if label == "main64" else len(seqs))):
+        rows = slice(band_off[b], band_off[b + 1])
+        codes, best = window_fill_codes(abea.kmer_ranks(seqs[b]), evs[b], t.params[b].numpy(),
+                                        t.model.numpy(), ev_idx[rows], km_idx[rows])
+        np.testing.assert_array_equal(codes, got[rows], err_msg=f"{label} read {b}")
+        assert np.float32(best).tobytes() == f.best[b].numpy().tobytes(), (label, b)
+
+
+@pytest.mark.parametrize("label", ["synthetic", "main64"])
+def test_longest_first_order(label):
+    """The fill kernel's start order is a permutation of the reads by band
+    count, longest first and ties in read order; the plain version's
+    outputs of every read are the same when the reads come in that order."""
+    (seqs, evs, sc, model), t, f, _, _ = _window_run(label)
+    order = t.host["order"]
+    nb = np.diff(t.host["band_off"])
+    assert order.dtype == np.int32 and np.array_equal(np.sort(order), np.arange(len(seqs)))
+    np.testing.assert_array_equal(t.order.numpy(), order)
+    assert (np.diff(nb[order]) <= 0).all()
+    ties = np.diff(nb[order]) == 0
+    assert (np.diff(order)[ties] > 0).all()
+    perm = abea.upload_reads([seqs[i] for i in order], [evs[i] for i in order], *model,
+                             sc[order], "cpu")
+    assert np.array_equal(perm.host["order"], np.arange(len(seqs)))
+    g = abea.abea_fill(perm)
+    out, g_out = abea.abea_backtrack(t, f).numpy(), abea.abea_backtrack(perm, g).numpy()
+    tr, g_tr = f.traces.view(-1, abea.BW // 4).numpy(), g.traces.view(-1, abea.BW // 4).numpy()
+    bo, g_bo = t.host["band_off"], perm.host["band_off"]
+    B = len(seqs)
+    for k, b in enumerate(order.tolist()):
+        rows, g_rows = slice(bo[b], bo[b + 1]), slice(g_bo[k], g_bo[k + 1])
+        np.testing.assert_array_equal(g_tr[g_rows], tr[rows])
+        np.testing.assert_array_equal(g.bll_e.numpy()[g_rows], f.bll_e.numpy()[rows])
+        np.testing.assert_array_equal(g_out[4 * B + 2 * g_bo[k]:4 * B + 2 * g_bo[k + 1]],
+                                      out[4 * B + 2 * bo[b]:4 * B + 2 * bo[b + 1]])
+        np.testing.assert_array_equal(g_out[4 * k:4 * k + 4], out[4 * b:4 * b + 4])
+    np.testing.assert_array_equal(g.trace1.numpy(), f.trace1.numpy()[order])
+    np.testing.assert_array_equal(g.best.numpy().view(np.int32),
+                                  f.best.numpy().view(np.int32)[order])
+    np.testing.assert_array_equal(g.best_ev.numpy(), f.best_ev.numpy()[order])
 
 
 @pytest.mark.parametrize("label", BATCHES)

@@ -20,7 +20,7 @@ from genomicsbench_tpu_torch.ops import abea
 from genomicsbench_tpu_torch.ops.eventalign import eventalign_reads
 
 from torch_abea_cases import (_model, bench_abea_reads, edge_cases, eventalign_reads_case,
-                              load_align_golden)
+                              load_align_golden, wave_reads)
 
 pytestmark = pytest.mark.cuda
 EDGES = edge_cases()
@@ -75,6 +75,39 @@ def test_main_path_sample(card):
     assert got.failed == want.failed
     for g, w in zip(got.pairs, want.pairs):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("direction", ["shortest_first", "longest_first"])
+def test_reads_in_either_length_order(card, direction):
+    """Reads handed over sorted by length either way: the kernel's own
+    longest-first order is then the identity or the reversal."""
+    seqs, evs, sc = bench_abea_reads(96, seed=6, lo=100, hi=900)
+    idx = np.argsort([len(s) + len(e) for s, e in zip(seqs, evs)], kind="stable")
+    if direction == "longest_first":
+        idx = idx[::-1]
+    t = abea.upload_reads([seqs[i] for i in idx], [evs[i] for i in idx], *_model(), sc[idx],
+                          card)
+    nb = np.diff(t.host["band_off"])
+    assert (np.diff(nb[t.host["order"]]) <= 0).all()
+    _kernels_vs_plain(t)
+
+
+def test_one_read(card):
+    seqs, evs, sc = bench_abea_reads(1, seed=8)
+    t = abea.upload_reads(seqs, evs, *_model(), sc, card)
+    assert t.host["order"].tolist() == [0]
+    _kernels_vs_plain(t)
+
+
+def test_batch_straddling_the_waves(card):
+    """More reads than the card holds warps at once (132 SMs x 32 one-warp
+    blocks), their band counts spread from about 130 to 1,000, so reads
+    start as others end, the last and shortest behind a full card."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    seqs, evs, sc = wave_reads(sms * 32 + 300, seed=9)
+    t = abea.upload_reads(seqs, evs, *_model(), sc, card)
+    assert t.n_reads > sms * 32
+    _kernels_vs_plain(t)
 
 
 def test_eventalign_tsv_matches_cpu(card):

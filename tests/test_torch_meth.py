@@ -35,7 +35,8 @@ from genomicsbench_tpu_torch.ops.abea import detect_events
 from genomicsbench_tpu_torch.ops.eventalign import eventalign_reads
 
 from torch_abea_cases import _model, eventalign_reads_case
-from torch_meth_cases import edge_instances, instance, reversed_read, same_meth_rows
+from torch_meth_cases import (LANE_KS, edge_instances, host_tables, instance, lane_group_forward,
+                              lane_k_batch, reversed_read, same_meth_rows, strong_skip)
 
 torch.set_num_threads(1)
 
@@ -139,6 +140,64 @@ def test_plain_forward_matches_oracles():
         assert w64 == jax_meth.profile_hmm_score_oracle(*args, dtype=np.float64)
         assert g == pytest.approx(w32, rel=REL, abs=ABS)
         assert w32 == pytest.approx(w64, rel=1e-3, abs=5e-2)
+
+
+@pytest.mark.parametrize("flags", [0, 1, 2, 3])
+def test_lane_group_model_matches_plain_and_jax(flags):
+    """The numpy model of the kernel's lane groups (g lanes x C blocks, the
+    segmented scan, the group edges) on K at every group edge and the 256
+    cap in one batch, within the bound of meth_forward_reference and of JAX
+    `_phmm_meth_scan` (through its profile_hmm_score_batch)."""
+    insts = lane_k_batch(CPG[0])
+    t = meth.upload_profile_instances(insts, *CPG, "cpu")
+    assert (t.host["class_n"] > 0).all()
+    got = lane_group_forward(host_tables(t), flags)
+    want = meth.meth_forward_reference(t, flags).numpy()
+    assert _close(got, want), np.abs(got - want).max()
+    jax_want = jax_meth.profile_hmm_score_batch(insts, *CPG, flags=flags)
+    assert _close(got, jax_want), np.abs(got - jax_want).max()
+
+
+@pytest.mark.parametrize("flags", [0, 3])
+def test_lane_group_model_with_a_strong_skip_chain(flags):
+    """The same under params whose skip chain carries weight, where an error
+    in the K state's scan across a group's lanes leaves the bound."""
+    t = meth.upload_profile_instances(lane_k_batch(CPG[0], seed=12), *CPG, "cpu")
+    t.params = torch.from_numpy(strong_skip(t.params.numpy()))
+    got = lane_group_forward(host_tables(t), flags)
+    want = meth.meth_forward_reference(t, flags).numpy()
+    assert _close(got, want), np.abs(got - want).max()
+
+
+def test_lane_group_order_and_scatter():
+    """The host order: each instance in the smallest lane group g with
+    ceil(K / g) <= 8, the classes in order, within a class rows x C
+    descending (ties in instance order); the upload carries it; and the
+    scores, written at each instance's own index, follow a shuffled batch
+    instance for instance."""
+    insts = lane_k_batch(CPG[0], seed=13)
+    t = meth.upload_profile_instances(insts, *CPG, "cpu")
+    nk = np.diff(t.host["rank_off"])
+    cls = meth.lane_groups(nk)
+    g = 1 << cls
+    assert (-(-nk // g) <= 8).all() and ((g == 1) | (nk > 4 * g)).all()
+    assert cls[nk == 256].tolist() == [5] and cls[nk == 8].tolist() == [0]
+    order, class_n = t.host["order"], t.host["class_n"]
+    np.testing.assert_array_equal(t.order.numpy(), order)
+    assert np.array_equal(np.sort(order), np.arange(len(insts)))
+    np.testing.assert_array_equal(cls[order], np.repeat(np.arange(6), class_n))
+    rows = np.abs(t.host["ev_last"] - t.host["ev_first"]) + 1
+    key = rows * -(-nk // g)
+    for c in range(6):
+        sl = order[cls[order] == c]
+        assert (np.diff(key[sl]) <= 0).all()
+        assert (np.diff(sl)[np.diff(key[sl]) == 0] > 0).all()
+    scores = lane_group_forward(host_tables(t))
+    perm = np.random.default_rng(0).permutation(len(insts))
+    shuffled = meth.upload_profile_instances([insts[i] for i in perm], *CPG, "cpu")
+    assert not np.array_equal(shuffled.host["order"], order)
+    np.testing.assert_array_equal(lane_group_forward(host_tables(shuffled)), scores[perm])
+    assert set(LANE_KS) <= set(nk.tolist())
 
 
 @pytest.fixture(scope="module")

@@ -2,8 +2,9 @@
 Every test needs an NVIDIA GPU (marker `cuda`) and skips without one.
 Tolerance: the JAX package's own bound, rel 2e-4 and abs 2e-3
 (tests/test_methylation.py:52): the kernel's expf/log1pf and its K chain's
-order of sums (a warp scan over lane chunks) differ from the plain
-version's in the last bits; every key, count and sequence is exact.
+order of sums (a scan over the lanes of an instance's group) differ from
+the plain version's in the last bits; every key, count and sequence is
+exact.
 
 This file imports neither JAX nor tests/conftest.py, so on a machine with a
 card and no JAX it runs without the repo's conftest:
@@ -23,7 +24,8 @@ from genomicsbench_tpu_torch.ops import methylation as meth
 from genomicsbench_tpu_torch.ops.eventalign import eventalign_reads
 
 from torch_abea_cases import _model, eventalign_reads_case
-from torch_meth_cases import edge_instances, reversed_read, same_meth_rows
+from torch_meth_cases import (edge_instances, lane_k_batch, reversed_read, same_meth_rows,
+                              strong_skip)
 
 pytestmark = pytest.mark.cuda
 CPG = meth.synthetic_cpg_model()
@@ -70,6 +72,34 @@ def test_both_row_directions_match_plain(card, stride):
     got = meth.meth_forward(t).cpu()
     want = meth.profile_hmm_score_batch(insts, *CPG, device="cpu")
     assert _close(got, want)
+
+
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("flags", [3, 0])
+def test_one_launch_holds_every_lane_group(card, flags, strong):
+    """K at every lane-group edge and the 256 cap in one launch (every class
+    of 1 to 32 lanes present), within the bound of the plain version; with
+    `strong`, under a skip chain that carries weight in the score."""
+    t = meth.upload_profile_instances(lane_k_batch(CPG[0]), *CPG, card)
+    assert (t.host["class_n"] > 0).all()
+    if strong:
+        t.params = torch.from_numpy(strong_skip(t.params.cpu().numpy())).to(card)
+    before = meth.meth_forward.launches
+    got = meth.meth_forward(t, flags)
+    assert meth.meth_forward.launches == before + 1
+    want = meth.meth_forward_reference(t, flags)
+    torch.cuda.synchronize()
+    assert _close(got.cpu(), want.cpu()), (got - want).abs().max().item()
+
+
+def test_scores_in_instance_order_for_a_shuffled_batch(card):
+    insts = EDGES["ragged"] + lane_k_batch(CPG[0], seed=14)
+    perm = np.random.default_rng(2).permutation(len(insts))
+    got = meth.meth_forward(meth.upload_profile_instances(insts, *CPG, card)).cpu().numpy()
+    shuffled = meth.upload_profile_instances([insts[i] for i in perm], *CPG, card)
+    got_perm = meth.meth_forward(shuffled).cpu().numpy()
+    np.testing.assert_array_equal(got_perm, got[perm])
+    assert _close(got_perm, meth.meth_forward_reference(shuffled).cpu())
 
 
 def test_reversed_range_ending_at_event_0_on_the_card(card):

@@ -473,7 +473,7 @@ def _abea_tables():
 
 
 @pytest.mark.parametrize("fault", ["dtype", "contiguity", "model_shape", "offs_order",
-                                   "offs_end", "band_off", "empty_read", "fill_dtype",
+                                   "offs_end", "band_off", "empty_read", "order", "fill_dtype",
                                    "fill_length"])
 def test_abea_wrappers_check_inputs(fault, monkeypatch):
     """abea_fill and abea_backtrack refuse what the kernels do not take, on
@@ -501,6 +501,8 @@ def test_abea_wrappers_check_inputs(fault, monkeypatch):
     elif fault == "empty_read":     # a read of no k-mer
         t.host["k_off"][1], t.host["band_off"][1] = 0, t.host["e_off"][1]
         err = ValueError
+    elif fault == "order":          # the kernel's start order, not a permutation
+        t.host["order"][0], err = t.host["order"][1], ValueError
     elif fault == "fill_dtype":
         f.best_ev, err = f.best_ev.long(), TypeError
     else:
@@ -844,7 +846,8 @@ def _meth_tables():
 
 
 @pytest.mark.parametrize("fault", ["rank_high", "rank_upload", "no_kmer", "too_many_kmers",
-                                   "events", "read", "flank", "flags", "dtype", "model_shape"])
+                                   "events", "read", "flank", "flags", "dtype", "model_shape",
+                                   "order", "lane_groups"])
 def test_meth_wrapper_checks_inputs(fault, monkeypatch):
     """meth_forward refuses what the kernel does not take, on the host,
     before it would build or launch anything."""
@@ -887,6 +890,10 @@ def test_meth_wrapper_checks_inputs(fault, monkeypatch):
         flags = 4
     elif fault == "dtype":
         t.ranks, err = t.ranks.int(), TypeError
+    elif fault == "order":          # the kernel's slots, not a permutation
+        h["order"] = np.zeros_like(h["order"])
+    elif fault == "lane_groups":    # an instance counted in a smaller lane group
+        h["class_n"] = np.roll(h["class_n"], -1)
     else:
         t.model = t.model[:, :100].contiguous()
     with pytest.raises(err):

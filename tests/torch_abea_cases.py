@@ -17,7 +17,11 @@ arrays:
   19-26, copied;
 * the QC count and pairs digest of the main path's first 512 reads, which
   the tests compute from the port's plain version (held against JAX) and
-  chip_smoke.py holds the card to.
+  chip_smoke.py holds the card to;
+* `sliding_window`, `window_fill_codes`: numpy models of how
+  `gb_abea_fill` carries each band's emission inputs in its lanes;
+* `wave_reads`: many short reads, made fast, for a batch of more warps
+  than the card holds at once.
 """
 
 from __future__ import annotations
@@ -259,3 +263,144 @@ def load_bench_abea_reads(path):
         seqs = np.split(z["seqs"], np.cumsum(z["seq_len"])[:-1])
         evs = np.split(z["evs"], np.cumsum(z["ev_len"])[:-1])
         return seqs, evs, z["scalings"]
+
+
+W = 100           # band cells
+LIVE_LANES = 25   # lanes of 4 cells
+
+
+def sliding_window(bll_e, band_off, n_kmers):
+    """A numpy model of how `gb_abea_fill` (csrc/abea.cu) carries a band's
+    emission inputs: every read's 32 lanes x 4 cells of event indices and
+    k-mer indices, from band 1's corner (event 50, k-mer -51), shifted by
+    each move the bands' corners `bll_e` take (right: cell o takes cell
+    o + 1's k-mer, across the lane edge as __shfl_down_sync does, and k-mer
+    `kin` enters at cell 99; down: cell o takes cell o - 1's event, as
+    __shfl_up_sync does, and event `ein` enters at cell 0), with the
+    kernel's look-ahead (the entering k-mer's terms, and the rank of the one
+    after, loaded a move ahead).  Returns (NB, 100) event and k-mer indices
+    of cells 0..99 at each band, in the flat band layout."""
+    band_off = np.asarray(band_off, np.int64)
+    bll_e = np.asarray(bll_e, np.int64)
+    R = len(band_off) - 1
+    nb = np.diff(band_off)
+    o = 4 * np.arange(32)[:, None] + np.arange(4)[None, :]           # (32, 4) cells
+    be = np.full(R, W // 2, np.int64)
+    bk = np.full(R, -1 - W // 2, np.int64)
+    ev = be[:, None, None] - o[None]                                  # (R, 32, 4)
+    km = bk[:, None, None] + o[None]
+    kin, ein = bk + W, be + 1                 # what enters on a right / a down move
+    k_next, r_after = kin.copy(), kin + 1     # the look-ahead: terms of kin, rank of kin + 1
+    out_ev = np.zeros((int(band_off[-1]), W), np.int64)
+    out_km = np.zeros_like(out_ev)
+    rows = np.arange(R)
+    for s in range(int(nb.max()) if R else 0):
+        live = s < nb
+        r = rows[live]
+        nbe = bll_e[band_off[r] + s]
+        right = nbe == be[r]
+        if not ((nbe == be[r]) | (nbe == be[r] + 1)).all():
+            raise AssertionError(f"band {s}: a corner moved by more than one cell")
+        rr, dd = r[right], r[~right]
+        # right: in-lane moves, lane l's cell 3 takes lane l + 1's cell 0 (the
+        # last lane keeps its own), lane 24's cell 3 takes the look-ahead
+        k = km[rr]
+        down0 = np.concatenate([k[:, 1:, 0], k[:, -1:, 0]], 1)
+        km[rr] = np.concatenate([k[:, :, 1:], down0[:, :, None]], 2)
+        km[rr, LIVE_LANES - 1, 3] = k_next[rr]
+        k_next[rr] = r_after[rr]
+        kin[rr] += 1
+        r_after[rr] = kin[rr] + 1
+        # down: in-lane moves, lane l's cell 0 takes lane l - 1's cell 3 (the
+        # first lane keeps its own), lane 0's cell 0 takes event ein
+        e = ev[dd]
+        up3 = np.concatenate([e[:, :1, 3], e[:, :-1, 3]], 1)
+        ev[dd] = np.concatenate([up3[:, :, None], e[:, :, :3]], 2)
+        ev[dd, 0, 0] = ein[dd]
+        ein[dd] += 1
+        be[dd] += 1
+        bk[rr] += 1
+        out_ev[band_off[r] + s] = ev[r].reshape(len(r), -1)[:, :W]
+        out_km[band_off[r] + s] = km[r].reshape(len(r), -1)[:, :W]
+    return out_ev, out_km
+
+
+def window_fill_codes(ranks, evs, p, model, ev_idx, km_idx):
+    """One read's fill in numpy float32 (abea.py:298-406) as the kernel
+    computes its emissions: each k-mer's terms once (m = scale * mean +
+    shift, stdv, c = -0.918938 - log stdv), gathered at the event and k-mer
+    indices the window carries (`sliding_window`'s rows of this read), each
+    emission c + (-0.5 a) a with a = (x - m) / stdv.  Returns the 2-bit codes
+    (nk + ne, 100) and the best score."""
+    f32, neg = np.float32, np.float32(-np.inf)
+    mean, stdv, log_stdv = model
+    scale, shift, lp_skip, lp_stay, lp_step, lp_trim = p
+    r = np.asarray(ranks) & 4095
+    km_m = scale * mean[r] + shift
+    km_sd = stdv[r]
+    km_c = f32(-0.918938) - log_stdv[r]
+    nk, ne = len(ranks), len(evs)
+    offs = np.arange(W)
+    prev2 = np.where(offs == W // 2, f32(0), neg).astype(f32)
+    prev = np.where(offs == W // 2, lp_trim, neg).astype(f32)
+    be, bk, bk_p = W // 2, -1 - W // 2, -1 - W // 2
+    codes = np.zeros((nk + ne, W), np.uint8)
+    best = [neg]
+
+    def check(band, e, k):      # the best (event, last k-mer) cell
+        off = (nk - 1) - k
+        if 0 <= off < W and 0 <= e - off < ne:
+            sc = band[off] + f32(ne - (e - off)) * lp_trim
+            best[0] = sc if sc > best[0] else best[0]
+
+    check(prev2, be - 1, bk)
+    check(prev, be, bk)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for s in range(nk + ne):
+            ll, ur = prev[0], prev[W - 1]
+            right = s % 2 == 1 if ll == neg and ur == neg else bool(ll < ur)
+            nbe, nbk = (be, bk + 1) if right else (be + 1, bk)
+            up = np.append(prev[1:], neg) if right else prev
+            left = prev if right else np.insert(prev[:-1], 0, neg)
+            diag = [np.insert(prev2[:-1], 0, neg), prev2,
+                    np.append(prev2[1:], neg)][int(right) + bk - bk_p]
+            evi, kmi = nbe - offs, nbk + offs
+            ev_in = (evi >= 0) & (evi < ne)
+            valid = ev_in & (kmi >= 0) & (kmi < nk)
+            if not (np.array_equal(ev_idx[s][valid], evi[valid])
+                    and np.array_equal(km_idx[s][valid], kmi[valid])):
+                raise AssertionError(f"band {s}: the window carries other indices")
+            k = np.clip(km_idx[s], 0, nk - 1)
+            x = evs[np.clip(ev_idx[s], 0, max(ne - 1, 0))] if ne else np.zeros(W, f32)
+            a = (x - km_m[k]) / km_sd[k]
+            lp_e = km_c[k] + (f32(-0.5) * a) * a
+            s_d = (diag + lp_step) + lp_e
+            s_u = (up + lp_stay) + lp_e
+            s_l = left + lp_skip
+            mx = np.maximum(s_d, s_u)
+            mx2 = np.maximum(mx, s_l)
+            frm = np.where(mx2 == s_l, 2, np.where(mx == s_u, 1, 0))
+            trim = ev_in & (kmi == -1)
+            band = np.where(valid, mx2, neg).astype(f32)
+            band = np.where(trim, lp_trim * (evi + 1).astype(f32), band).astype(f32)
+            codes[s] = np.where(trim, 1, np.where(valid, frm, 0))
+            check(band, nbe, nbk)
+            prev2, prev = prev, band
+            bk_p, be, bk = bk, nbe, nbk
+    return codes, best[0]
+
+
+def wave_reads(n_reads, seed, lo=60, hi=400):
+    """`n_reads` reads of lo..hi-1 bases with about 1.5 events per k-mer
+    (`_events_for`), made a read at a time with numpy: (sequences, event
+    means, scalings)."""
+    mean, stdv = _model()
+    rng = np.random.default_rng(seed)
+    seqs, evs, sc = [], [], np.zeros((n_reads, 2), np.float32)
+    for b in range(n_reads):
+        seq = rng.integers(0, 4, int(rng.integers(lo, hi))).astype(np.uint8)
+        sc[b] = rng.uniform(0.9, 1.1), rng.uniform(-5, 5)
+        ev = _events_for(rng, seq, mean, stdv, float(sc[b, 0]), float(sc[b, 1]), 1.5)
+        seqs.append(seq)
+        evs.append(ev if len(ev) else mean[_ranks(seq)[:1]].astype(np.float32))
+    return seqs, evs, sc

@@ -12,6 +12,11 @@ port's own modules only: the machine with the card has no JAX.
   genome (half of them from the reverse strand), their raw signals, and
   their BAM records (cigar all M), for eventalign and call-methylation in
   reference mode (-b/-g).
+* `lane_k_batch`, `strong_skip` -- one batch of every lane-group size, and
+  params under which the skip chain carries weight in the score.
+* `lane_group_forward` -- a numpy model of `gb_meth_forward`'s layout: the
+  instances on warps of lane groups, g lanes x C blocks, the segmented
+  scan of the skip chain, the group edges.
 """
 
 from __future__ import annotations
@@ -191,3 +196,165 @@ def same_meth_rows(a, b, rel=2e-4, abs_=2e-3):
         if d[0] > tol[0] or d[1] > tol[1] or abs(x[4] - y[4]) > tol[0] + tol[1]:
             return False, worst
     return True, worst
+
+
+# K at every lane-group edge: 8 g and 8 g + 1 blocks, and the 256 cap
+LANE_KS = (1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65, 255, 256)
+
+
+def lane_k_batch(cpg_mean, seed=11, rows=(1, 60)):
+    """Instances of K = LANE_KS in one batch (both variants, rows drawn
+    from `rows`), then 20 of random K from 1 to 256."""
+    rng = np.random.default_rng(seed)
+    out = [instance(rng, cpg_mean, k, int(rng.integers(*rows)), k % 2 == 1) for k in LANE_KS]
+    out += [instance(rng, cpg_mean, int(k), int(rng.integers(*rows)), bool(k % 2))
+            for k in rng.integers(1, 257, 20)]
+    return out
+
+
+def strong_skip(params):
+    """The (R, 16) params with a skip chain that carries weight: lp_kk
+    -0.05, lp_mk -0.3 and lp_km -0.5 (the model's own are log 0.3 and
+    below), so that an error in the K state's scan moves the score beyond
+    the bound."""
+    p = np.array(params, np.float32, copy=True)
+    p[:, 12], p[:, 4], p[:, 13] = -0.05, -0.3, -0.5
+    return p
+
+
+def _la(a, b):
+    """logaddexp as the kernel computes it, in float32."""
+    m = np.maximum(a, b)
+    return (m + np.log1p(np.exp(-np.abs(a - b)))).astype(np.float32)
+
+
+def lane_group_forward(tab, flags=3):
+    """A numpy float32 model of `gb_meth_forward` (csrc/meth.cu) on a batch's
+    host tables (a dict of numpy arrays: ranks, rank_off, ev_first, ev_last,
+    read, events, params, model, flank, order, class_n): each class c of
+    `class_n` puts its instances, in `order`, on warps of 32 / g groups of
+    g = 2^c lanes; lane i of a group holds blocks [i C, i C + C), C =
+    ceil(K / g); per row M and B take the block before a lane's first from
+    the previous lane (__shfl_up_sync within the group, -1e30 at a group's
+    first lane), the skip chain runs along the blocks (g = 1) or as a fold,
+    a Hillis-Steele scan of the lanes' maps within the group and a rerun,
+    and the lane of block K - 1 adds the end state.  A warp runs to its
+    longest instance's rows.  Returns (G,) float32 scores in instance
+    order."""
+    f32, neg = np.float32, np.float32(-1e30)
+    off = np.asarray(tab["rank_off"], np.int64)
+    order, class_n = np.asarray(tab["order"]), np.asarray(tab["class_n"], np.int64)
+    first, last = np.asarray(tab["ev_first"], np.int64), np.asarray(tab["ev_last"], np.int64)
+    model = np.asarray(tab["model"], np.float32)
+    params = np.asarray(tab["params"], np.float32)
+    events, flank = np.asarray(tab["events"], np.float32), np.asarray(tab["flank"], np.float32)
+    ranks, read = np.asarray(tab["ranks"]).astype(np.int64), np.asarray(tab["read"])
+    G = len(off) - 1
+    out = np.full(G, np.nan, np.float32)
+    lanes = np.arange(32)
+    start = 0
+    for c, n in enumerate(class_n.tolist()):
+        g = 1 << c
+        li = lanes % g
+        for w in range(-(-n // (32 // g))):
+            slot = start + w * (32 // g) + lanes // g
+            has = slot < start + n
+            gi = order[np.where(has, slot, start)].astype(np.int64)
+            K = np.where(has, off[gi + 1] - off[gi], 1)
+            E = np.where(has, np.abs(last[gi] - first[gi]) + 1, 0)
+            step = np.where(last[gi] >= first[gi], 1, -1)
+            C = -(-K // g)
+            if (C > 8).any():
+                raise AssertionError(f"class {c}: an instance of {int(K.max())} blocks")
+            b0 = li * C
+            last_lane = (K - 1) // C
+            last_j = (K - 1) - last_lane * C
+            p = params[read[gi]]
+            (scale, shift, var, log_var, lp_mk, lp_mb, lp_mm_self, lp_mm_next, lp_bb, lp_bk,
+             lp_bm_next, lp_bm_self, lp_kk, lp_km) = (p[:, i] for i in range(14))
+            blk = b0[:, None] + np.arange(8)[None, :]
+            live = (np.arange(8)[None, :] < C[:, None]) & (blk < K[:, None])
+            r = ranks[np.where(live, off[gi][:, None] + blk, 0)]
+            gm = np.where(live, scale[:, None] * model[0][r] + shift[:, None], f32(0))
+            gs = np.where(live, model[1][r] * var[:, None], f32(1))
+            gc = np.where(live, f32(-0.918938) - (model[2][r] + log_var[:, None]),
+                          f32(-0.918938)).astype(f32)
+            M = np.full((32, 8), neg, f32)
+            B, Ks, u = M.copy(), M.copy(), M.copy()
+            lane_s = C.astype(f32) * lp_kk
+            lp_end = np.full(32, neg, f32)
+
+            def up(v, d):           # __shfl_up_sync(v, d, g)
+                return v[np.where(li >= d, lanes - d, lanes)]
+
+            def at(X, j):           # X[lane, j[lane]]
+                return X[lanes, j]
+
+            with np.errstate(over="ignore"):
+                for row in range(1, int(E.max()) + 1):
+                    ev = events[np.where(row <= E, first[gi] + (row - 1) * step, 0)]
+                    pre, post = flank[row - 1], flank[np.maximum(E - row, 0)]
+                    pm, pb, pk = (np.where(li == 0, neg, up(at(X, C - 1), 1)) for X in (M, B, Ks))
+                    for j in range(8):
+                        act = j < C
+                        b = b0 + j
+                        mo, bo, ko = M[:, j].copy(), B[:, j].copy(), Ks[:, j].copy()
+                        s = _la(lp_mm_self + mo, lp_mm_next + pm)
+                        s = _la(s, lp_bm_self + bo)
+                        s = _la(s, lp_bm_next + pb)
+                        s = _la(s, lp_km + pk)
+                        s = np.where((b == 0) & bool((flags & 1) or row == 1), _la(s, pre), s)
+                        a = (ev - gm[:, j]) / gs[:, j]
+                        em = gc[:, j] - (f32(0.5) * a) * a
+                        inn = b < K
+                        M[:, j] = np.where(act, np.where(inn, s + em, neg), mo)
+                        B[:, j] = np.where(act, np.where(inn, _la(lp_mb + mo, lp_bb + bo), neg),
+                                           bo)
+                        pm, pb, pk = (np.where(act, v, q) for v, q in ((mo, pm), (bo, pb),
+                                                                      (ko, pk)))
+                    pm, pb = (np.where(li == 0, neg, up(at(X, C - 1), 1)) for X in (M, B))
+                    x = np.full(32, neg, f32)
+                    if g == 1:
+                        for j in range(8):
+                            act = j < C
+                            uj = _la(lp_mk + pm, lp_bk + pb)
+                            pm, pb = np.where(act, M[:, j], pm), np.where(act, B[:, j], pb)
+                            x = np.where(act, _la(uj, lp_kk + x), x)
+                            Ks[:, j] = np.where(act, np.where(b0 + j < K, x, neg), Ks[:, j])
+                    else:
+                        fold = np.full(32, neg, f32)
+                        for j in range(8):
+                            act = j < C
+                            uj = np.where(b0 + j < K, _la(lp_mk + pm, lp_bk + pb), neg)
+                            u[:, j] = np.where(act, uj, u[:, j])
+                            pm, pb = np.where(act, M[:, j], pm), np.where(act, B[:, j], pb)
+                            fold = np.where(act, _la(u[:, j], lp_kk + fold), fold)
+                        U, S = fold, lane_s
+                        d = 1
+                        while d < g:
+                            Uo, So = up(U, d), up(S, d)
+                            U, S = (np.where(li >= d, _la(U, S + Uo), U),
+                                    np.where(li >= d, So + S, S))
+                            d *= 2
+                        x = np.where(li == 0, neg, up(U, 1))
+                        for j in range(8):
+                            act = j < C
+                            x = np.where(act, _la(u[:, j], lp_kk + x), x)
+                            Ks[:, j] = np.where(act, np.where(b0 + j < K, x, neg), Ks[:, j])
+                    mine = li == last_lane
+                    em, eb, ek = (np.where(mine, at(X, last_j), neg) for X in (M, B, Ks))
+                    end = (row <= E) & (bool(flags & 2) | (row == E))
+                    lp_end = np.where(end, _la(lp_end, _la(_la(em, eb), ek) + post), lp_end)
+            keep = has & (li == last_lane)
+            out[gi[keep]] = lp_end[keep]
+        start += n
+    return out
+
+
+def host_tables(t):
+    """`lane_group_forward`'s dict from MethTables on the CPU."""
+    tab = {name: getattr(t, name).numpy() for name in (
+        "ranks", "rank_off", "ev_first", "ev_last", "read", "events", "params", "model",
+        "flank", "order")}
+    tab["class_n"] = t.host["class_n"]
+    return tab
