@@ -41,7 +41,7 @@ SOURCES = {
     "chain": (CSRC / "chain.cu",
               {"gb_chain_dp": [_P] * 9 + [_L] + [_I] * 4 + [_P] * 6}),
     "pairhmm": (CSRC / "pairhmm.cu",
-                {name: [_P] * 11 + [_L, _P, _L, _P] + [_I] * 3 + [_P] * 2
+                {name: [_P] * 13 + [_L, _I, _L, _P, _L, _P] + [_I] * 3 + [_P] * 2
                  for name in ("gb_pairhmm_f32", "gb_pairhmm_f64")}),
     "abea": (CSRC / "abea.cu",
              {"gb_abea_fill": [_P] * 8 + [_L] + [_P] * 6,

@@ -1,7 +1,8 @@
 // Flye kmer-cnt for Hopper: canonical k-mers, their run counts and
 // per-position frequencies, the window-minimizer walk and the minimizer
-// sites.  Five kernels: four one thread per work item, the walk one block
-// per read.
+// sites.  Five kernels: the canonical pass one thread per unit of 16
+// positions, the run count, the frequency scatter and the site build one
+// thread per work item, the walk one block per read.
 //
 // The JAX package computes these in genomicsbench_tpu/ops/kmer.py:
 //   gb_kmer_canonical  replaces `_canonical_kmers` (:165) and, on the
@@ -74,7 +75,9 @@
 //
 // Bounds (chip_smoke.py `[kmer kernel]` counts them from each run's inputs):
 // the canonical pass, the run count and the frequency scatter are bytes
-// bound (one code byte in and one 4-byte key out per position; 4 bytes of
+// bound (one code byte in and one 4-byte key out per position, the
+// canonical pass's few tens of integer instructions a position, a roll, the
+// butterfly and in mode 1 the packed byte's carry, near that line; 4 bytes of
 // key; 4 + 8 bytes of key and permutation in and 2 bytes out); the
 // minimizer walk moves one code byte in and 8 + 1 bytes of raw k-mer and
 // mask out per position and does a few tens of integer instructions per
@@ -91,6 +94,7 @@ namespace {
 constexpr int32_t kSentinelKey = 0x7FFFFFFF;   // SENTINEL 0xFFFFFFFF ^ 0x80000000
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
+constexpr int kUnit = 16;                      // positions of a canonical-pass thread's unit
 constexpr int kMinThreads = 128;               // threads of a minimizer block
 constexpr int kMinSegBits = 4;
 constexpr int kMinSeg = 1 << kMinSegBits;      // consecutive positions a thread walks
@@ -127,36 +131,133 @@ __device__ __forceinline__ uint64_t splitmix(uint32_t v) {
   return z ^ (z >> 31);
 }
 
-// The code at column c of a row, as each input mode holds it: 0 the codes
-// themselves; 1 the codes, each read through its byte as pack_codes_2bit
-// forms it (columns at and beyond L are 0 there).
-__device__ __forceinline__ uint32_t code_at(const uint8_t* __restrict__ row, int64_t c,
-                                            int64_t L, int mode) {
-  if (mode == 0) return row[c];
-  const int shift = 2 * static_cast<int>(c & 3);
-  const int64_t g = c & ~static_cast<int64_t>(3);
-  uint32_t byte = 0;
-  for (int s = 0; s < 4; ++s)
-    if (g + s < L) byte |= static_cast<uint32_t>(row[g + s]) << (2 * s);
-  return ((byte & 0xFFu) >> shift) & 3u;
+// The canonical pass: one unit of kUnit consecutive positions of the flat
+// (B * L) plane a thread, a grid-stride loop over the units.  The units
+// follow the codes' 16-byte alignment (the first starts sh = codes % 16
+// bytes before the plane), so a unit's codes are one aligned 16-byte load,
+// the k - 1 after it the next unit's (an L1 hit), and in mode 1 the 4 bytes
+// before it; its keys are four 16-byte stores where sh % 4 == 0 and the
+// unit lies in the plane, else one store a position.  One division a unit
+// finds its first row and column; the rows its window of kUnit + K - 1
+// positions touches are walked a segment at a time, giving a bit mask of
+// its valid positions (col < length - K) and, in mode 1, of the window's
+// positions whose column is a multiple of 4.  Mode 1 derives each code as
+// `pack_codes_2bit` and `_unpack_codes_2bit` read it: the code at slot s of
+// a packed byte is ((OR over t <= s of code_t << 2t) >> 2s) & 3, so
+// d = (c | carry) & 3 with the carry the bits above the slot of the codes
+// before it in its byte, cleared at a byte's first slot (the byte's `&
+// 0xFF` and its later slots never reach it).  The k-mer is seeded from the
+// first K codes and rolled, x' = (x - d_q 4^(K-1)) 4 + d_(q+K) mod 2^32,
+// exact for any uint8 code: the flat window sum, which at a valid position
+// is that position's k-mer, since its K codes lie in its row, so the roll
+// needs no restart at a row boundary, and it is left unmasked as
+// `extract_kmers` leaves it.  The reverse complement is the butterfly on
+// ~x & mask at every position (a rolled one would be wrong once a code
+// carries).  K and the mode are template arguments, so the window's
+// registers are indexed at compile time.  tests/torch_kmer_cases.py
+// `unit_sweep_keys` is a model of the sweep in Python integers, held
+// against the plain version at every byte offset of the codes.
+template <int K>
+__device__ __forceinline__ uint32_t revcomp_k(uint32_t x) {
+  constexpr uint32_t mask = K == 16 ? 0xFFFFFFFFu : ((1u << (2 * K)) - 1u);
+  x = ~x & mask;
+  x = ((x & 0x33333333u) << 2) | ((x & 0xCCCCCCCCu) >> 2);
+  x = ((x & 0x0F0F0F0Fu) << 4) | ((x & 0xF0F0F0F0u) >> 4);
+  x = __byte_perm(x, 0, 0x0123);
+  return x >> (32 - 2 * K);
 }
 
+template <int K, int MODE>
 __global__ void __launch_bounds__(kThreads)
 canonical_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
-                 int64_t B, int64_t L, int k, int mode, int32_t* __restrict__ keys) {
-  const int64_t n = B * L;
-  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; idx < n;
-       idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t b = idx / L;
-    const int64_t i = idx - b * L;
-    int32_t key = kSentinelKey;
-    if (i < static_cast<int64_t>(lengths[b]) - k) {
-      const uint8_t* row = codes + b * L;
-      uint32_t x = 0;
-      for (int j = 0; j < k; ++j) x += code_at(row, i + j, L, mode) << (2 * (k - 1 - j));
-      key = static_cast<int32_t>(canonical(x, k) ^ 0x80000000u);
+                 int64_t B, int64_t L, int32_t* __restrict__ keys) {
+  constexpr int W = kUnit + K - 1;                 // the window's positions
+  constexpr uint32_t kTop = 1u << (2 * (K - 1));   // 4^(K-1)
+  const int64_t N = B * L;
+  const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(codes) & 15);
+  const uint8_t* base = codes - sh;                // 16-byte aligned
+  const int64_t units = (N + sh + 15) / 16;
+  for (int64_t c = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; c < units;
+       c += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t p0 = 16 * c - sh;                // the unit's first position
+    const uint4 v0 = *reinterpret_cast<const uint4*>(base + 16 * c);
+    uint4 v1 = make_uint4(0, 0, 0, 0);
+    if (p0 + 16 < N) v1 = *reinterpret_cast<const uint4*>(base + 16 * c + 16);
+    const uint32_t w[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    uint32_t prev = 0;                             // the 4 codes before the unit
+    if (MODE == 1 && c > 0) prev = *reinterpret_cast<const uint32_t*>(base + 16 * c - 4);
+
+    // the rows: the first position's row and column, then a segment a row
+    int q = p0 < 0 ? static_cast<int>(-p0) : 0;
+    const int64_t first = p0 + q;
+    int64_t b;
+    if (N <= 0xFFFFFFFFll) {
+      b = static_cast<uint32_t>(first) / static_cast<uint32_t>(L);
+    } else {
+      b = first / L;
     }
-    keys[idx] = key;
+    int64_t col = first - b * L;
+    const int col0 = static_cast<int>(col & 3);
+    uint32_t valid = 0;
+    uint64_t slot0 = 0;
+    while (q < W && p0 + q < N) {
+      const int64_t left = L - col;               // the row's positions from here
+      const int seg = left < W - q ? static_cast<int>(left) : W - q;
+      slot0 |= (0x1111111111111111ull << (q + (static_cast<int>(-col) & 3))) &
+               (((1ull << seg) - 1) << q);
+      if (q < kUnit) {
+        const int64_t room = static_cast<int64_t>(lengths[b]) - K - col;
+        const int most = seg < kUnit - q ? seg : kUnit - q;
+        const int nv = room <= 0 ? 0 : (room < most ? static_cast<int>(room) : most);
+        valid |= ((1u << nv) - 1u) << q;
+      }
+      q += seg;
+      col = 0;
+      ++b;
+    }
+
+    // the window's codes, as the mode reads them
+    uint32_t d[W];
+    if constexpr (MODE == 0) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) d[i] = (w[i >> 2] >> (8 * (i & 3))) & 0xFFu;
+    } else {
+      const int a = p0 >= 0 ? col0 : 0;            // the unit's slot in its byte
+      uint32_t carry = 0;
+      if (a >= 1) carry |= (prev >> 24) >> 2;
+      if (a >= 2) carry |= ((prev >> 16) & 0xFFu) >> 4;
+      if (a >= 3) carry |= ((prev >> 8) & 0xFFu) >> 6;
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        if (i > 0 && ((slot0 >> i) & 1)) carry = 0;
+        const uint32_t u = ((w[i >> 2] >> (8 * (i & 3))) & 0xFFu) | carry;
+        d[i] = u & 3u;
+        carry = u >> 2;
+      }
+    }
+
+    // the roll
+    uint32_t x = 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) x = x * 4u + d[j];
+    int32_t out[kUnit];
+#pragma unroll
+    for (int i = 0; i < kUnit; ++i) {
+      const uint32_t rc = revcomp_k<K>(x);
+      const uint32_t canon = rc < x ? rc : x;
+      out[i] = ((valid >> i) & 1u) ? static_cast<int32_t>(canon ^ 0x80000000u) : kSentinelKey;
+      if (i + 1 < kUnit) x = (x - d[i] * kTop) * 4u + d[i + K];
+    }
+    if (p0 >= 0 && p0 + kUnit <= N && (sh & 3) == 0) {
+      int4* dst = reinterpret_cast<int4*>(keys + p0);
+#pragma unroll
+      for (int v = 0; v < kUnit / 4; ++v)
+        dst[v] = make_int4(out[4 * v], out[4 * v + 1], out[4 * v + 2], out[4 * v + 3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kUnit; ++i)
+        if (p0 + i >= 0 && p0 + i < N) keys[p0 + i] = out[i];
+    }
   }
 }
 
@@ -512,15 +613,44 @@ unsigned grid_for(int64_t n, int64_t threads) {
   return static_cast<unsigned>(blocks < 8192 ? blocks : 8192);
 }
 
+template <int MODE>
+int launch_canonical(const void* codes, const void* lengths, int64_t B, int64_t L, int k,
+                     void* keys, cudaStream_t stream) {
+  const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(codes) & 15);
+  const unsigned grid = grid_for((B * L + sh + 15) / 16, kThreads);
+  const auto* c = static_cast<const uint8_t*>(codes);
+  const auto* len = static_cast<const int32_t*>(lengths);
+  auto* out = static_cast<int32_t*>(keys);
+  switch (k) {
+#define GB_CANON_CASE(K_)                                                       \
+  case K_:                                                                      \
+    canonical_kernel<K_, MODE><<<grid, kThreads, 0, stream>>>(c, len, B, L, out); \
+    break;
+    GB_CANON_CASE(1) GB_CANON_CASE(2) GB_CANON_CASE(3) GB_CANON_CASE(4)
+    GB_CANON_CASE(5) GB_CANON_CASE(6) GB_CANON_CASE(7) GB_CANON_CASE(8)
+    GB_CANON_CASE(9) GB_CANON_CASE(10) GB_CANON_CASE(11) GB_CANON_CASE(12)
+    GB_CANON_CASE(13) GB_CANON_CASE(14) GB_CANON_CASE(15) GB_CANON_CASE(16)
+#undef GB_CANON_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// The canonical key of every position of the (B, L) codes, at any byte
+// offset, into keys (B * L,) int32, which must be 16-byte aligned; mode 0
+// reads the codes as given, mode 1 through their packed bytes.
 extern "C" int gb_kmer_canonical(const void* codes, const void* lengths, int64_t B, int64_t L,
                                  int k, int mode, void* keys, void* stream) {
   if (B <= 0 || L <= 0) return 0;
-  canonical_kernel<<<grid_for(B * L, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(lengths), B, L, k, mode,
-      static_cast<int32_t*>(keys));
-  return static_cast<int>(cudaGetLastError());
+  if (L > INT_MAX || (mode != 0 && mode != 1) ||
+      (reinterpret_cast<uintptr_t>(keys) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return mode == 0 ? launch_canonical<0>(codes, lengths, B, L, k, keys, st)
+                   : launch_canonical<1>(codes, lengths, B, L, k, keys, st);
 }
 
 extern "C" int gb_kmer_runs(const void* sorted_keys, int64_t n, void* out, void* stream) {

@@ -277,8 +277,10 @@ def canonical_keys(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     mode MODE_CODES: the codes as given (code 4 carries, as in
     `extract_kmers`; count_kmers and the frequency plane); MODE_PACK_CODES:
     each code read as `pack_codes_2bit` packs it (what count_kmers_stats
-    counts).  CPU tensors take the plain version; CUDA tensors launch
-    gb_kmer_canonical once on the current stream."""
+    counts).  The codes may lie at any byte offset (a view into a larger
+    buffer).  CPU tensors take the plain version; CUDA tensors launch
+    gb_kmer_canonical once on the current stream (16 positions a thread,
+    the k-mer rolled along them; see csrc/kmer.cu)."""
     _check_k(k)
     if mode not in (MODE_CODES, MODE_PACK_CODES):
         raise ValueError(f"unknown mode {mode}")

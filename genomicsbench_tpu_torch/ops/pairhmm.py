@@ -10,9 +10,10 @@ oracle/pairhmm.py.
 Two versions of one function, `pairhmm_forward`, over the uploaded tables of
 `upload_pairs` and a list of pairs, in float32 or float64:
 
-* on the card, the hand-written CUDA kernel `csrc/pairhmm.cu` (one warp per
-  pair, 32 read rows at a time sweeping the haplotype as a wavefront; see
-  the note there), one template instantiated for float and double;
+* on the card, the hand-written CUDA kernel `csrc/pairhmm.cu` (a pair on a
+  group of 4-32 lanes of several read rows each, sweeping the haplotype as
+  a wavefront, in the order and classes that `phmm_order` picks; see the
+  note there), one template instantiated for float and double;
 * on the CPU, `pairhmm_forward_reference`, the plain PyTorch version: an
   anti-diagonal wavefront over all listed pairs at once, one step per
   diagonal.  `chip_smoke.py` also runs it on the card to hold the kernel
@@ -40,6 +41,7 @@ does), the unroll knob, and the host-side transition arrays.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 
 import numpy as np
@@ -64,6 +66,22 @@ PHMM_OPS_PER_LAST_ROW_CELL = 2
 # static 1 KB table
 SMEM_MAX_BYTES = 232_448 - 1024
 WARPS_PER_BLOCK = 8         # the kernel's most (kMaxWarpsPerBlock)
+# The kernel's classes: g lanes of r read rows each hold a pair, r from
+# the instance's most (kMaxRows) down to 1; a class of g < 32 lanes takes
+# pairs of at most g * r rows, in one strip
+PHMM_GROUPS = (32, 16, 8, 4)
+PHMM_MAX_ROWS = {torch.float32: 7, torch.float64: 3}
+# The picker's weights, in warp instructions reckoned from the kernel's
+# loop: per step (the shuffles, the haplotype base, the group's first lane,
+# the loop), per cell of a step, per step of a strip that hands its bottom
+# row on (the top row's loads and stores), per strip and per row of a
+# strip (the coefficients); and the haplotype length it assumes (the main
+# path's mean is 298).  The picker's table covers R below PHMM_CLASS_R;
+# longer reads take the widest class.
+PHMM_COST_STEP, PHMM_COST_CELL, PHMM_COST_TOP_ROW = 20, 14, 8
+PHMM_COST_STRIP, PHMM_COST_ROW = 30, 25
+PHMM_NOMINAL_H = 300
+PHMM_CLASS_R = 4096
 
 _U8, _I32, _I64 = torch.uint8, torch.int32, torch.int64
 
@@ -74,8 +92,11 @@ class PairTables:
     `upload_pairs` makes them: read r's bases and its q/i/d/c quality planes
     (uint8, clamped to [0, 127]) at [r_off[r], r_off[r+1]), haplotype h at
     [h_off[h], h_off[h+1]), pair p = (pair_r[p], pair_h[p]); the two ph2pr
-    tables.  `host` holds numpy copies of r_off, h_off, pair_r and pair_h,
-    which the wrapper checks before a launch."""
+    tables; the float32 kernel's order and classes of all the pairs
+    (`phmm_order`).  `host` holds numpy copies of r_off, h_off, pair_r,
+    pair_h, order and classes, which the wrapper checks before a launch, and
+    the order's count of virtual warps and most strips (`vwarps`,
+    `strips`)."""
 
     bases: torch.Tensor
     q: torch.Tensor
@@ -87,6 +108,8 @@ class PairTables:
     h_off: torch.Tensor
     pair_r: torch.Tensor
     pair_h: torch.Tensor
+    order: torch.Tensor
+    classes: torch.Tensor
     ph2pr_f32: torch.Tensor
     ph2pr_f64: torch.Tensor
     host: dict
@@ -104,10 +127,85 @@ class PairTables:
         return int((rl[r] * hl[h]).sum())
 
 
+def phmm_classes(dtype) -> list:
+    """The (g, r) classes of the kernel instance for `dtype`, in the order
+    the kernel runs them: r from the most down (the longest warps first),
+    g from 32 down."""
+    return [(g, r) for r in range(PHMM_MAX_ROWS[dtype], 0, -1) for g in PHMM_GROUPS]
+
+
+@functools.lru_cache(maxsize=None)
+def _class_table(dtype) -> np.ndarray:
+    """The picker: the class index of a pair of R rows, for R below
+    PHMM_CLASS_R.  Each class is priced by the warp instructions its strips
+    cost a pair at PHMM_NOMINAL_H columns: S strips of H + g - 1 steps on
+    g of the warp's 32 lanes, each step PHMM_COST_STEP + r PHMM_COST_CELL
+    (+ PHMM_COST_TOP_ROW where strips hand on a row), each strip
+    PHMM_COST_STRIP + r PHMM_COST_ROW.  A class of g < 32 lanes takes one
+    strip at most."""
+    R = np.arange(PHMM_CLASS_R)
+    costs = []
+    for g, r in phmm_classes(dtype):
+        S = -(-R // (g * r))
+        step = PHMM_COST_STEP + PHMM_COST_CELL * r + PHMM_COST_TOP_ROW * (S > 1)
+        cost = S * g * ((PHMM_NOMINAL_H + g - 1) * step + PHMM_COST_STRIP + PHMM_COST_ROW * r)
+        costs.append(np.where((S > 1) & (g < 32), np.inf, cost.astype(np.float64)))
+    return np.argmin(np.stack(costs), 0).astype(np.int64)
+
+
+def _class_rows(dtype):
+    """Per class: g, r and the pairs a warp holds (32 / g), int64 arrays."""
+    gr = np.array(phmm_classes(dtype), np.int64)
+    return gr[:, 0], gr[:, 1], 32 // gr[:, 0]
+
+
+def phmm_order(R: np.ndarray, H: np.ndarray, dtype=torch.float32):
+    """The kernel's order of pairs of R read rows and H haplotype bases:
+    each pair's class from the picker (`_class_table`; R past its end takes
+    the widest class, index 0), the pairs sorted by class, then by strips
+    and haplotype length, both longest first.  Returns (order, classes,
+    virtual warps, most strips): order (n,) int64, list positions in the
+    kernel's order; classes (C * 4,) int64, per class its first warp, its
+    first slot in the order, its pair count and (g << 8) | r."""
+    R, H = np.asarray(R, np.int64), np.asarray(H, np.int64)
+    g, r, per = _class_rows(dtype)
+    cls = np.where(R < PHMM_CLASS_R, _class_table(dtype)[np.minimum(R, PHMM_CLASS_R - 1)], 0)
+    S = -(-R // (g[cls] * r[cls]))
+    key = ((cls << 20) + ((1 << 20) - 1 - np.minimum(S, (1 << 20) - 1))) << 31
+    key += (1 << 31) - 1 - np.minimum(H, (1 << 31) - 1)
+    order = np.argsort(key, kind="stable").astype(np.int64)
+    counts = np.bincount(cls, minlength=len(g)).astype(np.int64)
+    warps = -(-counts // per)
+    table = np.stack([np.cumsum(warps) - warps, np.cumsum(counts) - counts, counts,
+                      (g << 8) | r], 1).reshape(-1)
+    return order, table, int(warps.sum()), int(S.max(initial=0))
+
+
+def _phmm_order_device(R: torch.Tensor, H: torch.Tensor, dtype):
+    """`phmm_order` of device tensors, on the device (torch ops as glue, no
+    wait for the host): (order, classes); the virtual warps are at most
+    the pair count."""
+    dev = R.device
+    g, r, per = (torch.from_numpy(a).to(dev) for a in _class_rows(dtype))
+    lut = torch.from_numpy(_class_table(dtype)).to(dev)
+    cls = torch.where(R < PHMM_CLASS_R, lut[R.clamp(max=PHMM_CLASS_R - 1)], 0)
+    S = (R + g[cls] * r[cls] - 1) // (g[cls] * r[cls])
+    key = ((cls << 20) + ((1 << 20) - 1 - S.clamp(max=(1 << 20) - 1))) << 31
+    key += (1 << 31) - 1 - H.clamp(max=(1 << 31) - 1)
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(cls, minlength=len(g))
+    warps = (counts + per - 1) // per
+    table = torch.stack([torch.cumsum(warps, 0) - warps, torch.cumsum(counts, 0) - counts,
+                         counts, (g << 8) | r], 1).reshape(-1)
+    return order, table.contiguous()
+
+
 def _marshal(reads, haps, pairs):
-    """Flat host arrays of the unique reads, haplotypes and the pairs,
+    """Flat host arrays of the unique reads, haplotypes and the pairs, with
+    the float32 kernel's order and classes of the pairs (`phmm_order`),
     packed into one byte buffer for one upload: (buffer, {name: (byte
-    offset, dtype, length)}, host copies of the offsets and pair indices)."""
+    offset, dtype, length)}, host copies of the offsets, pair indices,
+    order and classes)."""
     n_r, n_h = len(reads), len(haps)
     r_off = np.zeros(n_r + 1, np.int64)
     np.cumsum([len(rd["bases"]) for rd in reads], out=r_off[1:])
@@ -118,11 +216,14 @@ def _marshal(reads, haps, pairs):
     for name, col, n in (("read", pr[:, 0], n_r), ("haplotype", pr[:, 1], n_h)):
         if len(col) and (col.min() < 0 or col.max() >= n):
             raise IndexError(f"a pair's {name} index lies outside [0, {n})")
+    order, classes, vwarps, strips = phmm_order(np.diff(r_off)[pr[:, 0]],
+                                                np.diff(h_off)[pr[:, 1]])
     NR, NH, P = int(r_off[-1]), int(h_off[-1]), len(pr)
     fields = [("bases", np.uint8, NR), ("q", np.uint8, NR), ("i", np.uint8, NR),
               ("d", np.uint8, NR), ("c", np.uint8, NR), ("r_off", np.int64, n_r + 1),
               ("haps", np.uint8, NH), ("h_off", np.int64, n_h + 1),
-              ("pair_r", np.int32, P), ("pair_h", np.int32, P),
+              ("pair_r", np.int32, P), ("pair_h", np.int32, P), ("order", np.int64, P),
+              ("classes", np.int64, len(classes)),
               ("ph2pr_f32", np.float32, 128), ("ph2pr_f64", np.float64, 128)]
     layout, nbytes = {}, 0
     for name, dt, length in fields:
@@ -146,10 +247,13 @@ def _marshal(reads, haps, pairs):
     view("h_off")[:] = h_off
     view("pair_r")[:] = pr[:, 0]
     view("pair_h")[:] = pr[:, 1]
+    view("order")[:] = order
+    view("classes")[:] = classes
     view("ph2pr_f32")[:] = PH2PR_F32
     view("ph2pr_f64")[:] = PH2PR_F64
     host = dict(r_off=r_off, h_off=h_off, pair_r=pr[:, 0].astype(np.int32),
-                pair_h=pr[:, 1].astype(np.int32))
+                pair_h=pr[:, 1].astype(np.int32), order=order, classes=classes,
+                vwarps=np.int64(vwarps), strips=np.int64(strips))
     return buf, layout, host
 
 
@@ -180,6 +284,7 @@ def _check_tables(t: PairTables) -> None:
     specs = [("bases", _U8, NR), ("q", _U8, NR), ("i", _U8, NR), ("d", _U8, NR),
              ("c", _U8, NR), ("r_off", _I64, None), ("haps", _U8, NH),
              ("h_off", _I64, None), ("pair_r", _I32, P), ("pair_h", _I32, P),
+             ("order", _I64, P), ("classes", _I64, 4 * len(phmm_classes(torch.float32))),
              ("ph2pr_f32", torch.float32, 128), ("ph2pr_f64", torch.float64, 128)]
     for name, dtype, length in specs:
         x = getattr(t, name)
@@ -206,6 +311,12 @@ def _check_tables(t: PairTables) -> None:
             raise ValueError(f"host {name} must have {P} entries")
         if P and (h.min() < 0 or h.max() >= n):
             raise IndexError(f"{name} has an index outside [0, {n})")
+    order, classes = np.asarray(t.host["order"]), np.asarray(t.host["classes"])
+    if order.shape != (P,) or (P and (order.min() < 0 or order.max() >= P
+                                      or np.bincount(order, minlength=P).max() != 1)):
+        raise ValueError(f"host order must be a permutation of 0..{P - 1}")
+    if classes.shape != (t.classes.numel(),) or classes[2::4].sum() != P:
+        raise ValueError(f"host classes must count the {P} pairs")
 
 
 def _pair_index(t: PairTables, pair_idx, host_idx):
@@ -311,15 +422,55 @@ def pairhmm_forward_reference(t: PairTables, pair_idx=None, dtype=torch.float32)
 
 
 def phmm_launch(h_max: int, itemsize: int):
-    """(warps per block, bytes per warp, in device scratch) for haplotypes
-    of at most h_max bases in a dtype of `itemsize` bytes.  A warp holds the
-    row above its strip (M, X, Y for columns 0..h_max) and its haplotype;
-    past a block's shared memory the same layout lives in device scratch."""
-    h_max = int(h_max)
-    warp_bytes = -(-3 * (h_max + 1) * itemsize // 16) * 16 + -(-max(h_max, 1) // 16) * 16
+    """(warps per block, bytes per warp, in device scratch) for top rows of
+    at most h_max columns in a dtype of `itemsize` bytes: a warp whose pair
+    runs in strips holds the row above its strip (M, X, Y for columns
+    0..h_max); past a block's shared memory the same layout lives in device
+    scratch."""
+    warp_bytes = -(-3 * (int(h_max) + 1) * itemsize // 16) * 16
     if warp_bytes > SMEM_MAX_BYTES:
         return WARPS_PER_BLOCK, warp_bytes, True
     return min(WARPS_PER_BLOCK, SMEM_MAX_BYTES // warp_bytes), warp_bytes, False
+
+
+def phmm_plan(t: PairTables, pair_idx=None, dtype=torch.float32):
+    """The kernel's launch for the listed pairs of checked tables on the
+    card: (C entry, its arguments before `out` and the stream, the tensors
+    they point into).  All pairs in float32 take the order `upload_pairs`
+    made on the host; any other list is ordered on the device
+    (`_phmm_order_device`), its virtual warps bounded by its length.  A top
+    row is held only where a pair may run in strips."""
+    dev = t.bases.device
+    n = t.n_pairs if pair_idx is None else pair_idx.numel()
+    rl, hl = np.diff(t.host["r_off"]), np.diff(t.host["h_off"])
+    single_strip_rows = 32 * PHMM_MAX_ROWS[dtype]
+    if pair_idx is None and dtype == torch.float32:
+        order, classes, vwarps = t.order, t.classes, int(t.host["vwarps"])
+        strips = int(t.host["strips"]) > 1
+    else:
+        sel = torch.arange(n, device=dev) if pair_idx is None else pair_idx
+        R = (t.r_off[1:] - t.r_off[:-1])[t.pair_r[sel].long()]
+        H = (t.h_off[1:] - t.h_off[:-1])[t.pair_h[sel].long()]
+        order, classes = _phmm_order_device(R, H, dtype)
+        vwarps = n
+        strips = int(rl.max(initial=0)) > single_strip_rows
+    h_max = int(hl.max(initial=0)) if strips else 0
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    warps, warp_bytes, in_scratch = phmm_launch(h_max, itemsize)
+    blocks = max(1, -(-vwarps // warps))
+    scratch = None
+    if in_scratch:
+        blocks = min(blocks, torch.cuda.get_device_properties(dev).multi_processor_count)
+        scratch = torch.empty(blocks * warps * warp_bytes, dtype=_U8, device=dev)
+    entry = "gb_pairhmm_f32" if dtype == torch.float32 else "gb_pairhmm_f64"
+    table = t.ph2pr_f32 if dtype == torch.float32 else t.ph2pr_f64
+    args = (t.bases.data_ptr(), t.q.data_ptr(), t.i.data_ptr(), t.d.data_ptr(),
+            t.c.data_ptr(), t.r_off.data_ptr(), t.haps.data_ptr(), t.h_off.data_ptr(),
+            t.pair_r.data_ptr(), t.pair_h.data_ptr(),
+            None if pair_idx is None else pair_idx.data_ptr(), order.data_ptr(),
+            classes.data_ptr(), n, classes.numel() // 4, vwarps, table.data_ptr(), h_max,
+            None if scratch is None else scratch.data_ptr(), blocks, warps, warp_bytes)
+    return entry, args, (order, classes, scratch)
 
 
 def pairhmm_forward(t: PairTables, pair_idx=None, dtype=torch.float32, *, host_idx=None):
@@ -331,7 +482,8 @@ def pairhmm_forward(t: PairTables, pair_idx=None, dtype=torch.float32, *, host_i
     build or launch: pass `host_idx` (a host copy of pair_idx) where a CUDA
     caller has one, or the indices' range is read from the device.  CPU
     tables take the plain version; CUDA tables launch the kernel on the
-    current stream, without synchronising, and raise if the launch fails."""
+    current stream (`phmm_plan`), without synchronising, and raise if the
+    launch fails."""
     _check_dtype(dtype)
     _check_tables(t)
     pair_idx = _pair_index(t, pair_idx, host_idx)
@@ -347,24 +499,10 @@ def pairhmm_forward(t: PairTables, pair_idx=None, dtype=torch.float32, *, host_i
     out = torch.empty(n, dtype=dtype, device=dev)
     if n == 0:
         return out
-    h_max = int(np.diff(t.host["h_off"]).max()) if t.h_off.numel() > 1 else 0
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    warps, warp_bytes, in_scratch = phmm_launch(h_max, itemsize)
-    blocks = -(-n // warps)
-    scratch = None
-    if in_scratch:
-        blocks = min(blocks, torch.cuda.get_device_properties(dev).multi_processor_count)
-        scratch = torch.empty(blocks * warps * warp_bytes, dtype=_U8, device=dev)
-    fn = lib.gb_pairhmm_f32 if dtype == torch.float32 else lib.gb_pairhmm_f64
-    table = t.ph2pr_f32 if dtype == torch.float32 else t.ph2pr_f64
     with torch.cuda.device(dev):
+        entry, args, _keep = phmm_plan(t, pair_idx, dtype)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(t.bases.data_ptr(), t.q.data_ptr(), t.i.data_ptr(), t.d.data_ptr(),
-                t.c.data_ptr(), t.r_off.data_ptr(), t.haps.data_ptr(), t.h_off.data_ptr(),
-                t.pair_r.data_ptr(), t.pair_h.data_ptr(),
-                None if pair_idx is None else pair_idx.data_ptr(), n, table.data_ptr(),
-                h_max, None if scratch is None else scratch.data_ptr(), blocks, warps,
-                warp_bytes, out.data_ptr(), stream)
+        rc = getattr(lib, entry)(*args, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"pairhmm kernel launch failed with cudaError {rc}")
     pairhmm_forward.launches[dtype] += 1

@@ -36,10 +36,11 @@ from genomicsbench_tpu_torch.io.seqio import load_fastx_batch
 from genomicsbench_tpu_torch.oracle.kmer import count_kmers_oracle, yield_minimizers_oracle
 from genomicsbench_tpu_torch.utils import offsets_from_lengths
 
-from torch_kmer_cases import (KS, WINDOWS, batch_of, edge_batch, exclusive_scan_maps,
-                              genome_reads, next_fronts, planted_minimizer_case,
-                              planted_uneven_case, poly_a_batch, segment_maps,
-                              segment_scan_walk, walk_hashes, warmup_split_walk, write_fasta)
+from torch_kmer_cases import (KS, WINDOWS, batch_of, canon_sweep_batches, edge_batch,
+                              exclusive_scan_maps, genome_reads, next_fronts,
+                              planted_minimizer_case, planted_uneven_case, poly_a_batch,
+                              segment_maps, segment_scan_walk, unit_sweep_keys, walk_hashes,
+                              warmup_split_walk, write_fasta)
 
 # pytest-xdist runs several workers on the CPU's cores; torch's own thread
 # pool in each would oversubscribe them
@@ -108,6 +109,61 @@ def test_canonical_keys_equal_jax(k):
                                  jnp.asarray(lens), k=k)
     got = T.canonical_keys(torch.from_numpy(seq), torch.from_numpy(lens), k, T.MODE_PACK_CODES)
     assert np.array_equal(T.keys_to_u32(got).reshape(B, L), np.asarray(want))
+
+
+# --------------------------------------------------- the canonical sweep
+# tests/torch_kmer_cases.py `unit_sweep_keys` is a model of
+# gb_kmer_canonical (csrc/kmer.cu) in Python integers: units of 16
+# positions at the codes' 16-byte alignment, the rows walked a segment at a
+# time, the mode-1 carry through each packed byte, the seed and the roll
+# mod 2^32.  Held equal to the plain version and to JAX at every offset of
+# the codes in their buffer.
+SWEEP_OFFSETS = (0, 1, 4, 7, 12, 15)
+
+
+def _in_buffer(codes, off, seed):
+    """The codes at byte `off` of a buffer of random bytes."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 256, off + codes.size + 48).astype(np.uint8)
+    buf[off:off + codes.size] = codes.reshape(-1)
+    return buf
+
+
+def _jax_keys(seq, lens, k, mode):
+    if mode == T.MODE_PACK_CODES:
+        seq = np.asarray(J._unpack_codes_2bit(jnp.asarray(J.pack_codes_2bit(seq)), seq.shape[1]))
+    km, _ = J._canonical_kmers(jnp.asarray(seq), jnp.asarray(lens), k=k)
+    return np.asarray(km).reshape(-1)
+
+
+@pytest.mark.parametrize("mode", [T.MODE_CODES, T.MODE_PACK_CODES], ids=["codes", "packed"])
+@pytest.mark.parametrize("k", [1, 2, 15, 16])
+def test_unit_sweep_equals_plain_and_jax(k, mode):
+    """Rows of 1-96 bases (every residue mod 4 and 16, shorter than a
+    unit), one 200-base row, lengths 0, k - 1, k, k + 1 and L, N and codes
+    5-255 at every slot of a packed byte."""
+    for label, (seq, lens) in canon_sweep_batches(k).items():
+        B, L = seq.shape
+        want = T.canonical_keys_reference(torch.from_numpy(seq), torch.from_numpy(lens), k,
+                                          mode).numpy()
+        assert np.array_equal(T.keys_to_u32(want), _jax_keys(seq, lens, k, mode)), label
+        for off in SWEEP_OFFSETS:
+            got = unit_sweep_keys(_in_buffer(seq, off, off), off, B, L, lens, k, mode)
+            assert np.array_equal(got, want), (label, off)
+
+
+@pytest.mark.parametrize("k", KS)
+def test_unit_sweep_edge_and_genome(k):
+    """The edge batches (widths 96 and 93) and a genome batch, both modes,
+    the codes at offsets 0 and 5."""
+    for seq, lens in (EDGE, edge_batch(93), GENOME):
+        B, L = seq.shape
+        for mode in (T.MODE_CODES, T.MODE_PACK_CODES):
+            want = T.canonical_keys_reference(torch.from_numpy(seq), torch.from_numpy(lens), k,
+                                              mode).numpy()
+            for off in (0, 5):
+                got = unit_sweep_keys(_in_buffer(seq, off, k), off, B, L, lens, k, mode)
+                assert np.array_equal(got, want), (L, mode, off)
 
 
 # ------------------------------------------------------------------- counts

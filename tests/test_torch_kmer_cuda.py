@@ -19,8 +19,8 @@ from genomicsbench_tpu_torch.cli import main as torch_cli_main
 from genomicsbench_tpu_torch.oracle.kmer import count_kmers_oracle, yield_minimizers_oracle
 from genomicsbench_tpu_torch.utils import offsets_from_lengths
 
-from torch_kmer_cases import (KS, WINDOWS, batch_of, edge_batch, genome_reads, poly_a_batch,
-                              write_fasta)
+from torch_kmer_cases import (KS, WINDOWS, batch_of, canon_sweep_batches, edge_batch,
+                              genome_reads, poly_a_batch, write_fasta)
 
 pytestmark = pytest.mark.cuda
 TILE = 2048                 # positions a tile of gb_kmer_minimizers (csrc/kmer.cu kMinTile)
@@ -55,6 +55,28 @@ def test_canonical_runs_freqs_match_plain(card, case, k):
     f, sat = T.kmer_freqs(s, order)
     wf, wsat = T.kmer_freqs_reference(s, order)
     assert torch.equal(f, wf) and torch.equal(sat, wsat)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k", [1, 2, 15, 16])
+def test_canonical_at_every_byte_offset(card, k):
+    """The codes as a view at byte offsets 0-15 of a larger buffer on the
+    card, rows of odd L and shorter than the kernel's 16-position unit,
+    lengths 0, k - 1, k, k + 1 and L, N and codes 5-255 at every slot of a
+    packed byte: both modes bit for bit."""
+    for label, (seq, lens) in canon_sweep_batches(k).items():
+        B, L = seq.shape
+        lt = torch.from_numpy(lens).to(card)
+        buf = torch.from_numpy(np.random.default_rng(k).integers(0, 256, B * L + 64)
+                               .astype(np.uint8)).to(card)
+        for off in range(16):
+            codes = buf[off:off + B * L].view(B, L)
+            codes.copy_(torch.from_numpy(seq))
+            assert codes.data_ptr() % 16 == off
+            for mode in (T.MODE_CODES, T.MODE_PACK_CODES):
+                got = T.canonical_keys(codes, lt, k, mode)
+                want = T.canonical_keys_reference(codes, lt, k, mode)
+                assert torch.equal(got, want), (label, off, mode)
     torch.cuda.synchronize()
 
 

@@ -43,7 +43,7 @@ from genomicsbench_tpu_torch.oracle.pairhmm import (_PH2PR_F32, _PH2PR_F64, PH2P
                                                     pairhmm_forward_scaled,
                                                     pairhmm_forward_scaled_many)
 from test_independent_contracts import _mp_forward_log10
-from torch_phmm_cases import edge_cases, gen_phmm_workload
+from torch_phmm_cases import (edge_cases, gen_phmm_workload, lane_row_case, lane_row_forward)
 
 # pytest-xdist runs several workers on the CPU's cores; torch's own thread
 # pool in each would oversubscribe them and slow the run many times over
@@ -394,3 +394,130 @@ def test_phmm_batches_round_trip(tmp_path):
         assert [len(r.bases) for r in back.reads] == [len(r.bases) for r in b.reads]
     with pytest.raises(TypeError):
         phmm_batches_from_dicts([{**dataclasses.asdict(jax_batches[0]), "region": 1}])
+
+
+# ------------------------------------------------ the kernel's schedule
+# tests/torch_phmm_cases.py `lane_row_forward` is a numpy model of
+# gb_pairhmm_f32 / gb_pairhmm_f64 (csrc/pairhmm.cu): a pair on g lanes of r
+# rows each, in strips, bottom-aligned under rows that repeat row 0, the
+# group's boundary and top-row hand-off, the result summed in column order.
+# Held bit for bit against the plain version, for every class the host's
+# picker returns.
+def _picked(dtype):
+    """(g, r) classes the picker returns, R past its table included."""
+    table = pairhmm._class_table(dtype)
+    return [pairhmm.phmm_classes(dtype)[c] for c in sorted(set(table.tolist()) | {0})]
+
+
+LANE_ROW_CASES = [(np.float32, g, r) for g, r in _picked(torch.float32)] + \
+    [(np.float64, g, r) for g, r in _picked(torch.float64)]
+LANE_ROW = lane_row_case()
+
+
+@pytest.fixture(scope="module")
+def lane_row_plain():
+    reads, haps, pairs = LANE_ROW
+    t = pairhmm.upload_pairs(reads, haps, pairs, "cpu")
+    return {np.float32: pairhmm.pairhmm_forward_reference(t, None, torch.float32).numpy(),
+            np.float64: pairhmm.pairhmm_forward_reference(t, None, torch.float64).numpy()}
+
+
+@pytest.mark.parametrize("dtype, g, r", LANE_ROW_CASES,
+                         ids=[f"{np.dtype(d).name}-g{g}-r{r}" for d, g, r in LANE_ROW_CASES])
+def test_lane_row_schedule_equals_plain(dtype, g, r, lane_row_plain):
+    """Reads of 1-300 rows against haplotypes of 1-1,000 bases, N in both,
+    qualities 0 and 127: every pair that the class takes (all for 32
+    lanes, in strips; at most g * r rows otherwise)."""
+    reads, haps, pairs = LANE_ROW
+    sel = [k for k, (ri, _) in enumerate(pairs) if g == 32 or len(reads[ri]["bases"]) <= g * r]
+    got = lane_row_forward(reads, haps, [pairs[k] for k in sel], g, r, dtype)
+    np.testing.assert_array_equal(got, lane_row_plain[dtype][sel])
+
+
+def test_picker_classes():
+    """Each R takes a class that holds it (one strip below 32 lanes), R
+    past the table the widest class; on the main workload's first 3,000
+    pairs the picked classes fill 84% of their lane rows or more (cells
+    over rows x steps, the ramps included: 84.7% there, 85.3% on all
+    100,000; a warp per pair, one row a lane, filled 76%)."""
+    for dtype in (torch.float32, torch.float64):
+        classes = pairhmm.phmm_classes(dtype)
+        assert classes[0] == (32, pairhmm.PHMM_MAX_ROWS[dtype])
+        table = pairhmm._class_table(dtype)
+        g = np.array([classes[c][0] for c in table])
+        r = np.array([classes[c][1] for c in table])
+        R = np.arange(len(table))
+        assert ((g == 32) | (R <= g * r)).all()
+        order, cls, vwarps, strips = pairhmm.phmm_order([pairhmm.PHMM_CLASS_R + 5], [7], dtype)
+        assert cls.reshape(-1, 4)[0, 2] == 1 and vwarps == 1
+        assert strips == -(-(pairhmm.PHMM_CLASS_R + 5) // (32 * pairhmm.PHMM_MAX_ROWS[dtype]))
+    reads, haps, pairs, cells = gen_phmm_workload(3000)
+    R = np.array([len(reads[a]["bases"]) for a, _ in pairs])
+    H = np.array([len(haps[b]) for _, b in pairs])
+    classes = pairhmm.phmm_classes(torch.float32)
+    c = pairhmm._class_table(torch.float32)[R]
+    g = np.array([classes[i][0] for i in c])
+    r = np.array([classes[i][1] for i in c])
+    S = -(-R // (g * r))
+    assert cells / (S * (H + g - 1) * g * r).sum() >= 0.84
+
+
+def test_order_by_class_and_device_twin():
+    """phmm_order: a permutation of the list; each class's slots hold
+    pairs of that class, strips then haplotype length descending; the
+    classes' first warps and slots add up; `_phmm_order_device` (on CPU
+    tensors here) gives the same order and table."""
+    reads, haps, pairs, _ = gen_phmm_workload(3000)
+    R = np.array([len(reads[a]["bases"]) for a, _ in pairs] + [0, 300, 5000])
+    H = np.array([len(haps[b]) for _, b in pairs] + [50, 0, 20])
+    for dtype in (torch.float32, torch.float64):
+        order, table, vwarps, strips = pairhmm.phmm_order(R, H, dtype)
+        assert np.array_equal(np.sort(order), np.arange(len(R)))
+        classes = pairhmm.phmm_classes(dtype)
+        table = table.reshape(-1, 4)
+        pick = np.where(R < pairhmm.PHMM_CLASS_R,
+                        pairhmm._class_table(dtype)[np.minimum(R, pairhmm.PHMM_CLASS_R - 1)], 0)
+        warp = slot = most = 0
+        for c, (first_warp, first_slot, count, code) in enumerate(table):
+            g, r = classes[c]
+            assert (first_warp, first_slot, code) == (warp, slot, (g << 8) | r)
+            ks = order[first_slot:first_slot + count]
+            assert (pick[ks] == c).all()
+            S = -(-R[ks] // (g * r))
+            key = list(zip(-S, -H[ks]))
+            assert key == sorted(key)
+            most = max([most, *S])
+            warp += -(-count // (32 // g))
+            slot += count
+        assert (warp, slot) == (vwarps, len(R))
+        # the 5,000-row read, on 32 lanes of the instance's most rows
+        assert strips == most == -(-5000 // (32 * pairhmm.PHMM_MAX_ROWS[dtype]))
+        dev_order, dev_table = pairhmm._phmm_order_device(torch.from_numpy(R),
+                                                          torch.from_numpy(H), dtype)
+        assert np.array_equal(dev_order.numpy(), order)
+        assert np.array_equal(dev_table.numpy(), table.reshape(-1))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_ordered_schedule_scatters_to_pair_order(dtype):
+    """The kernel's walk of its order: each class's pairs (in their order)
+    through the lane-row model, out[order[slot]] written per pair, equals
+    the plain version in pair order, on the main workload's first 400
+    pairs with the lane-row reads against the shortest haplotypes."""
+    reads, haps, pairs, _ = gen_phmm_workload(400)
+    lr_reads, lr_haps, _ = LANE_ROW
+    n_r, n_h = len(reads), len(haps)
+    reads, haps = reads + lr_reads, haps + lr_haps[:3]
+    pairs = pairs + [(n_r + a, n_h + b) for a in range(len(lr_reads)) for b in range(3)]
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    R = np.array([len(reads[a]["bases"]) for a, _ in pairs])
+    H = np.array([len(haps[b]) for _, b in pairs])
+    order, table, _, _ = pairhmm.phmm_order(R, H, tdt)
+    out = np.full(len(pairs), np.nan, dtype)
+    for c, (_, first_slot, count, code) in enumerate(table.reshape(-1, 4)):
+        if count:
+            ks = order[first_slot:first_slot + count]
+            out[ks] = lane_row_forward(reads, haps, [pairs[k] for k in ks], int(code >> 8),
+                                       int(code & 0xFF), dtype)
+    t = pairhmm.upload_pairs(reads, haps, pairs, "cpu")
+    np.testing.assert_array_equal(out, pairhmm.pairhmm_forward_reference(t, None, tdt).numpy())

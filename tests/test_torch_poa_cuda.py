@@ -211,3 +211,24 @@ def test_backtrack_slab_sizes(card, n_windows):
     dags = [cases.random_dag(rng, int(rng.integers(1, 150)), 3, int(rng.integers(0, 300)))
             for _ in range(n_windows)]
     _kernels_vs_plain(poa.upload_windows(*cases.dag_planes(dags, 256, 4, 384), card), ALT)
+
+
+def test_backtrack_refuses_misaligned_trace(card):
+    """poa_backtrack reads the traces in 16-byte pieces: a trace plane one
+    int16 into a buffer (an odd offset) is refused with ValueError before
+    any launch; the same cells at an aligned address are taken."""
+    rng = np.random.default_rng(4)
+    dags = [cases.random_dag(rng, 40, 3, 60) for _ in range(2)]
+    t = poa.upload_windows(*cases.dag_planes(dags, 256, 4, 128), card)
+    f = poa.poa_fill(t, ALT)
+    buf = torch.empty(f.trace.numel() + 1, dtype=f.trace.dtype, device=card)
+    buf[1:].copy_(f.trace)
+    odd = poa.FillResult(f.score, f.best_rank, buf[1:])
+    assert odd.trace.data_ptr() % 16 != 0
+    before = poa.poa_backtrack.launches
+    with pytest.raises(ValueError, match="aligned"):
+        poa.poa_backtrack(t, odd)
+    assert poa.poa_backtrack.launches == before
+    path, plen = poa.poa_backtrack(t, f)
+    want_path, want_plen = poa.poa_backtrack_reference(t, f, False)
+    assert torch.equal(plen, want_plen) and torch.equal(path, want_path)

@@ -137,6 +137,118 @@ def write_fasta(path, codes, lengths):
             f.write(f">read_{i}\n{letters[c[:n]].tobytes().decode()}\n")
 
 
+# ------------------------------------------------- the canonical pass's sweep
+# A numpy model of gb_kmer_canonical (csrc/kmer.cu), in plain Python
+# integers: each unit of CANON_UNIT positions of the flat (B * L) plane,
+# whose codes sit at byte offset `off` of a 16-byte aligned buffer, starts
+# at 16 c - (off % 16) and sees its own aligned 16 bytes, the next 16 (where
+# any of them is in the plane) and, in mode 1, the 4 bytes before it (for
+# every unit but the first).  From the unit's first position it walks the
+# rows that its window of CANON_UNIT + k - 1 positions touches, one segment
+# a row: the 16 positions' validity (col < length - k) and, in mode 1, the
+# window's positions at a column that is a multiple of 4 (a packed byte's
+# first slot).  Mode 1 derives each code as `pack_codes_2bit` and
+# `_unpack_codes_2bit` read it: d = (c | carry) & 3, the carry the last
+# code's and carry's bits above the slot, cleared at a byte's first slot.
+# The k-mer is seeded from the first k codes and rolled a position at a
+# time, x' = (x - d_q 4^(k-1)) 4 + d_(q+k) mod 2^32: the flat window sum,
+# which at a valid position is that position's k-mer (its k codes lie in
+# its row), so the roll needs no restart at a row boundary.
+CANON_UNIT = 16
+_MASK32 = 0xFFFFFFFF
+
+
+def _revcomp_int(x, k):
+    x = ~x & (_MASK32 if k == 16 else (1 << (2 * k)) - 1)
+    x = ((x & 0x33333333) << 2) | ((x & 0xCCCCCCCC) >> 2)
+    x = ((x & 0x0F0F0F0F) << 4) | ((x & 0xF0F0F0F0) >> 4)
+    x = ((x & 0x00FF00FF) << 8) | ((x & 0xFF00FF00) >> 8)
+    x = ((x << 16) | (x >> 16)) & _MASK32
+    return x >> (32 - 2 * k)
+
+
+def unit_sweep_keys(buf, off, B, L, lengths, k, mode):
+    """The (B * L,) int32 keys that the sweep gives for the plane
+    buf[off : off + B * L] (bytes of `buf` around it stand for whatever
+    memory the aligned loads touch), `lengths` (B,), k from 1 to 16, mode 0
+    (codes as given) or 1 (codes through their packed bytes)."""
+    buf = np.asarray(buf, np.uint8)
+    N, sh = B * L, off % 16
+    sentinel = 0x7FFFFFFF
+    keys = np.full(N, sentinel, np.int64)
+    W = CANON_UNIT + k - 1
+    top = 1 << (2 * (k - 1))
+
+    def byte(p):                        # the byte at plane position p, as loaded
+        i = off + p
+        return int(buf[i]) if 0 <= i < len(buf) else 0
+
+    for c in range(-(-(N + sh) // 16)):
+        p0 = 16 * c - sh
+        nxt = 16 * (c + 1) - sh < N     # the next 16 bytes hold a plane byte
+        code = [byte(p0 + q) if q < 16 or nxt else 0 for q in range(32)]
+        prev = [byte(p0 - m) if c > 0 else 0 for m in (1, 2, 3)]
+        q = max(0, -p0)
+        b, col = divmod(p0 + q, L)
+        valid = slot0 = 0
+        col0 = col
+        while q < W and p0 + q < N:     # one segment a row
+            seg = min(L - col, W - q)
+            slot0 |= (0x1111111111111111 << (q + (-col & 3))) & (((1 << seg) - 1) << q)
+            if q < CANON_UNIT:
+                nv = max(0, min(int(lengths[b]) - k - col, seg, CANON_UNIT - q))
+                valid |= ((1 << nv) - 1) << q
+            q, col, b = q + seg, 0, b + 1
+        if mode == 0:
+            d = code[:W]
+        else:
+            a = col0 & 3 if p0 >= 0 else 0
+            carry = 0
+            for m in range(1, a + 1):
+                carry |= prev[m - 1] >> (2 * m)
+            d = []
+            for q in range(W):
+                if q and slot0 >> q & 1:
+                    carry = 0
+                u = code[q] | carry
+                d.append(u & 3)
+                carry = u >> 2
+        x = 0
+        for j in range(k):
+            x = (x * 4 + d[j]) & _MASK32
+        for q in range(CANON_UNIT):
+            p = p0 + q
+            if 0 <= p < N and valid >> q & 1:
+                keys[p] = min(x, _revcomp_int(x, k)) ^ 0x80000000
+            if q + 1 < CANON_UNIT:
+                x = ((x - d[q] * top) * 4 + d[q + k]) & _MASK32
+    return keys.astype(np.uint32).view(np.int32)
+
+
+def canon_sweep_batches(k, seed=0):
+    """{label: (codes (B, L), lengths)}: L = 1, 3, 5, 15, 16, 17 and L
+    of every residue mod 4 and mod 16 (rows starting inside units; L
+    smaller than a unit), a batch of one row, lengths 0, k - 1, k, k + 1
+    and L, codes 4 and 5-255 at every slot of a packed byte, runs of 4."""
+    rng = np.random.default_rng(seed * 100 + k)
+    out = {}
+    for L in (1, 3, 5, 15, 16, 17, 36, 37, 38, 39, 61, 96):
+        lens = np.array([0, max(0, k - 1), k, k + 1, L] + list(rng.integers(0, L + 1, 4)),
+                        np.int64)
+        lens = np.minimum(lens, L).astype(np.int32)
+        codes = rng.integers(0, 4, (len(lens), L)).astype(np.uint8)
+        amb = rng.random(codes.shape) < 0.15
+        codes[amb] = 4
+        big = rng.random(codes.shape) < 0.05
+        codes[big] = rng.integers(5, 256, int(big.sum()))
+        codes[-1, :] = np.arange(L) % 4 + 4 * (np.arange(L) // 4 % 2)
+        out[f"L{L}"] = (codes, lens)
+    L = 200
+    codes = rng.integers(0, 6, (1, L)).astype(np.uint8)
+    out["one_row"] = (codes, np.array([L], np.int32))
+    return out
+
+
 # --------------------------------------------------- the minimizer walk's scan
 # A numpy model of gb_kmer_minimizers' exactness argument (csrc/kmer.cu).
 # The deque's front after step p is always a position of the window's
