@@ -39,13 +39,13 @@ SOURCES = {
     "bsw": (CSRC / "bsw.cu",
             {"gb_bsw_extend": [_P] * 7 + [_L] * 3 + [_P] * 2 + [_I] * 10 + [_P]}),
     "chain": (CSRC / "chain.cu",
-              {"gb_chain_dp": [_P] * 9 + [_L] + [_I] * 4 + [_P] * 6}),
+              {"gb_chain_dp": [_P] * 9 + [_L] + [_I] * 5 + [_P] * 6}),
     "pairhmm": (CSRC / "pairhmm.cu",
                 {name: [_P] * 13 + [_L, _I, _L, _P, _L, _P] + [_I] * 3 + [_P] * 2
                  for name in ("gb_pairhmm_f32", "gb_pairhmm_f64")}),
     "abea": (CSRC / "abea.cu",
              {"gb_abea_fill": [_P] * 8 + [_L] + [_P] * 6,
-              "gb_abea_backtrack": [_P] * 11 + [_L] + [_P] * 2}),
+              "gb_abea_backtrack": [_P] * 12 + [_L] + [_P] * 3}),
     "poa": (CSRC / "poa.cu",
             {"gb_poa_fill": [_P] * 7 + [_L] + [_I] * 12 + [_P] * 7,
              "gb_poa_fill_occupancy": [_I] * 5 + [_P],

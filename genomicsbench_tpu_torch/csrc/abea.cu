@@ -68,17 +68,47 @@
 // shuffles and stores are left out, so the bound is a floor.  Bytes: the events and ranks once,
 // the model, one trace byte per 4 cells, one bll_e per band.
 //
-// Backtrack.  One thread per read: the walk is a pointer chase, one
-// dependent load of the band's corner and one of its trace byte per step,
-// over the read's own traces.  The emission terms sum with float32 Kahan
-// compensation; after the walk the Kahan update runs kTailSteps more times
-// with a zero term, as the JAX scan's padded steps do, which folds the
-// compensation into the sum (it settles within two).  Pairs are written
-// back to front into the read's slot of n_events + n_kmers pairs, so they
-// end in forward order at the slot's end; a header per read holds the
-// pair count, the sum, the longest event gap and the best score.  Its
-// bound is the longest read's chain of dependent steps, not its operations.
+// Design (backtrack).  The walk from the best (event, last k-mer) cell is
+// a pointer chase: each step reads its band's corner bll_e and then the
+// trace byte that the corner picks, and moves to band - 1 (up or left) or
+// band - 2 (diagonal), so it visits a read's bands in strictly decreasing
+// order.  So the traces are staged as tiles of 64 bands (25-byte rows and
+// the corners, 1,856 bytes at a 16-byte aligned start, by 16-byte cp.async)
+// into shared memory, two buffers a read: the tile the walk is in and the
+// one below it, whose load started when the walk entered the tile above.
+// A warp takes four reads of the fill's longest-first `order`, one on each
+// group of 8 lanes, and is a block of its own (19 KB of shared memory, 11
+// warps an SM).  Lane 0 of a group walks its read in shared memory, two
+// dependent shared loads a step, recording the path, (k-mer, event) a
+// step, in a buffer of 128 steps with the longest event gap.  The four
+// walkers step in lockstep, one instruction stream for four walks: in a
+// round each live walker steps until it stops (its band below its tile,
+// its buffer full, or its k-mer or event below 0), and the round ends when
+// all four have stopped, so their stops are handled together (rounds that
+// ended at the first walker's stop, with steps untested, measured 1.05 ms
+// on the main path against 0.83).  At a stop the walker's group moves it into
+// the tile below and stages the next, or computes the buffered steps'
+// emission terms (each step's rank, event and model values; ranks and
+// events walked monotonically down) and stores the pairs back to front
+// into the read's slot of n_events + n_kmers pairs, coalesced, so they end
+// in forward order at the slot's end; the walker then adds the terms into
+// the float32 Kahan sum in walk order with the intrinsics the plain
+// version's order gives.  After the walk the Kahan update runs kTailSteps
+// more times with a zero term, as the JAX scan's padded steps do, which
+// folds the compensation into the sum (it settles within two).  A header
+// per read holds the pair count, the sum, the longest event gap and the
+// best score.
+//
+// Bound (backtrack).  Bytes: per walk step one trace byte, one corner, a
+// rank, an event, the rank's three model values and the pair written (33
+// bytes), and per read its offsets, scale, shift, best and header.  The
+// design stages more than that: 29 bytes for every band of the walk's span
+// (the tiles' rows and corners), which chip_smoke.py prints beside the
+// bound as the staged-bytes floor.  And a latency floor: the longest walk's
+// tiles, each one device round trip if nothing overlapped, plus its steps
+// of two dependent shared-memory loads.
 
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
@@ -92,7 +122,12 @@ constexpr int kLiveLanes = kW / 4;        // 25 lanes of 4 cells
 constexpr int kModel = 4096;              // 6-mer pore model
 constexpr int kParams = 6;                // scale shift lp_skip lp_stay lp_step lp_trim
 constexpr int kFillBlocksPerSm = 28;      // one warp each: at most 72 registers a thread
-constexpr int kBacktrackThreads = 32;
+constexpr int kBtG = 8;                   // backtrack lanes a read
+constexpr int kBtReads = 32 / kBtG;       // backtrack reads a warp (and a block)
+constexpr int kBtTile = 64;               // bands a staged backtrack tile holds
+constexpr int kBtPath = 128;              // walk steps staged between term batches
+constexpr int kBtMinWarps = 11;           // backtrack warps an SM, by shared memory
+constexpr int kBtPerLane = kBtPath / kBtG;   // buffered steps a lane turns into terms
 constexpr int kTailSteps = 3;
 constexpr unsigned kFromD = 0, kFromU = 1, kFromL = 2;
 constexpr float kLogNorm = -0x1.d67f0ap-1f;   // float32(-0.918938)
@@ -320,59 +355,208 @@ __global__ void __launch_bounds__(32, kFillBlocksPerSm) abea_fill_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kBacktrackThreads) abea_backtrack_kernel(
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// One staged tile of the backtrack: the traces and corners of bands
+// 64q .. 64q + 63
+struct __align__(16) BtTile {
+  uint8_t trace[kBtTile * kLiveLanes];
+  int32_t bll_e[kBtTile];
+};
+
+// One read's shared memory in the backtrack: two tiles and the path
+// buffer, 16 bytes of skew so that the four reads of a warp sit on
+// different banks
+struct __align__(16) BtRead {
+  BtTile tile[2];
+  int2 path[kBtPath];
+  int4 skew;
+};
+
+// Four reads a warp (a group of kBtG = 8 lanes each, reads order[4w ..
+// 4w + 3], longest first), a warp a block.  Lane 0 of each group walks its
+// read; the four walkers step in lockstep, each until its band leaves its
+// tile, its path buffer fills or its walk ends, and the round ends when all
+// four have stopped.  A walker at a stop has its group's 8 lanes move it
+// into the tile below (staged
+// when it entered the one above) and stage the next, or compute the
+// buffered steps' terms and pairs, which the walker then adds into the
+// Kahan sum in walk order.  `tiles`, where given, gets the tiles each walk
+// stepped into.
+__global__ void __launch_bounds__(32, kBtMinWarps) abea_backtrack_kernel(
     const int32_t* __restrict__ ranks, const float* __restrict__ events,
     const int64_t* __restrict__ k_off, const int64_t* __restrict__ e_off,
     const int64_t* __restrict__ band_off, const float* __restrict__ params,
-    const float* __restrict__ model, const uint8_t* __restrict__ traces,
-    const int32_t* __restrict__ bll_e, const float* __restrict__ best,
-    const int32_t* __restrict__ best_ev, int64_t n_reads, int32_t* __restrict__ out) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= n_reads) return;
-  const int32_t* rk = ranks + k_off[b];
-  const float* ev = events + e_off[b];
-  const int nk = static_cast<int>(k_off[b + 1] - k_off[b]);
-  const int64_t b0 = band_off[b];
-  const float* p = params + b * kParams;
-  const float scale = p[0], shift = p[1];
-  const float bst = best[b];
-  int32_t* pairs = out + 4 * n_reads;     // (k-mer, event) int32 pairs
-  int n = 0, gap = 0, max_gap = 0;
+    const float* __restrict__ model, const int32_t* __restrict__ order,
+    const uint8_t* __restrict__ traces, const int32_t* __restrict__ bll_e,
+    const float* __restrict__ best, const int32_t* __restrict__ best_ev, int64_t n_reads,
+    int32_t* __restrict__ out, int32_t* __restrict__ tiles) {
+  __shared__ BtRead rd[kBtReads];
+  const int lane = threadIdx.x, grp = lane / kBtG, gl = lane % kBtG;
+  const int leader = grp * kBtG;
+  const bool walker = gl == 0;
+  const int64_t rr = static_cast<int64_t>(blockIdx.x) * kBtReads + grp;
+  const int64_t b = rr < n_reads ? order[rr] : -1;
+  BtRead& me = rd[grp];
+  const int32_t* rk = b >= 0 ? ranks + k_off[b] : ranks;
+  const float* ev = b >= 0 ? events + e_off[b] : events;
+  const int nk = b >= 0 ? static_cast<int>(k_off[b + 1] - k_off[b]) : 0;
+  const int64_t b0 = b >= 0 ? band_off[b] : 0, end = b >= 0 ? band_off[b + 1] : 0;
+  const int64_t n_bands = band_off[n_reads];
+  const float scale = b >= 0 ? params[b * kParams] : 0.0f;
+  const float shift = b >= 0 ? params[b * kParams + 1] : 0.0f;
+  const float bst = b >= 0 ? best[b] : 0.0f;
+  int2* pairs = reinterpret_cast<int2*>(out + 4 * n_reads);   // (k-mer, event)
+
+  // tile qq into buf by the group's lanes: 100 chunks of trace rows, 16 of
+  // corners; the bytes past the arrays' ends are zero
+  auto stage = [&](BtTile& buf, int64_t qq) {
+    for (int c = gl; c < (kBtTile * kLiveLanes + 4 * kBtTile) / 16; c += kBtG) {
+      if (c < kBtTile * kLiveLanes / 16) {
+        const int64_t e0 = qq * kBtTile * kLiveLanes + 16 * c;
+        const int64_t rem = n_bands * kLiveLanes - e0;
+        const int nb = rem >= 16 ? 16 : rem > 0 ? static_cast<int>(rem) : 0;
+        cp_async16(buf.trace + 16 * c, traces + (nb ? e0 : 0), nb);
+      } else {
+        const int c4 = c - kBtTile * kLiveLanes / 16;
+        const int64_t e0 = qq * kBtTile + 4 * c4;
+        const int64_t rem = n_bands - e0;
+        const int nb = rem >= 4 ? 16 : rem > 0 ? static_cast<int>(4 * rem) : 0;
+        cp_async16(buf.bll_e + 4 * c4, bll_e + (nb ? e0 : 0), nb);
+      }
+    }
+    cp_async_commit();
+  };
+
+  bool alive = b >= 0 && isfinite(bst);   // group-uniform: the read has a walk
+  int k = nk - 1, e = alive ? best_ev[b] : 0;   // the walker's walk
+  int64_t q = 0;
+  int rel = 0, cur = 0, t = 0, n = 0, gap = 0, max_gap = 0, walked = 0;
   float sum = 0.0f, comp = 0.0f;
-  if (isfinite(bst)) {
-    int k = nk - 1, e = best_ev[b];
-    int64_t pos = band_off[b + 1];        // back to front: forward order at the slot's end
-    while (k >= 0 && e >= 0) {
-      --pos;
-      pairs[2 * pos] = k;
-      pairs[2 * pos + 1] = e;
-      ++n;
-      const Kmer t_k = kmer_terms(model, __ldg(rk + k), scale, shift);
-      const float term = emission(__ldg(ev + e), t_k.m, t_k.sd, t_k.c);
-      const float y = __fsub_rn(term, comp);
-      const float t = __fadd_rn(sum, y);
-      comp = __fsub_rn(__fsub_rn(t, sum), y);
-      sum = t;
-      const int64_t band = b0 + (e + k);  // band index (e + 1) + (k + 1), less the 2 initial
-      const int off = min(max(__ldg(bll_e + band) - e, 0), kW - 1);
-      const unsigned frm = (__ldg(traces + band * kLiveLanes + (off >> 2)) >> (2 * (off & 3))) & 3u;
-      if (frm != kFromU) --k;
-      if (frm != kFromL) --e;
-      gap = frm == kFromL ? gap + 1 : 0;
-      max_gap = max(max_gap, gap);
-    }
-    for (int i = 0; i < kTailSteps; ++i) {  // the scan's steps past the walk: a zero term
-      const float y = __fsub_rn(0.0f, comp);
-      const float t = __fadd_rn(sum, y);
-      comp = __fsub_rn(__fsub_rn(t, sum), y);
-      sum = t;
-    }
+  if (alive) {
+    const int64_t band0 = b0 + (e + k);   // band (e + 1) + (k + 1), less the 2 initial
+    q = band0 / kBtTile;
+    rel = static_cast<int>(band0 - q * kBtTile);   // the band in its tile
+    stage(me.tile[0], q);
+    if (q > 0) stage(me.tile[1], q - 1);
+    else cp_async_commit();
+    cp_async_wait<1>();
+    walked = 1;
   }
-  int32_t* hdr = out + 4 * b;
-  hdr[0] = n;
-  hdr[1] = __float_as_int(sum);
-  hdr[2] = max_gap;
-  hdr[3] = __float_as_int(bst);
+  __syncwarp();
+  while (__any_sync(kFull, alive)) {
+    // each live walker steps until it stops; the round ends when all have
+    if (walker && alive) {
+      const BtTile& tl = me.tile[cur];
+      while (rel >= 0 && t < kBtPath && k >= 0 && e >= 0) {
+        me.path[t++] = make_int2(k, e);
+        const int off = min(max(tl.bll_e[rel] - e, 0), kW - 1);
+        const unsigned frm =
+            (tl.trace[rel * kLiveLanes + (off >> 2)] >> (2 * (off & 3))) & 3u;
+        const int dk = frm != kFromU, de = frm != kFromL;
+        k -= dk;
+        e -= de;
+        rel -= dk + de;
+        gap = frm == kFromL ? gap + 1 : 0;
+        max_gap = max(max_gap, gap);
+      }
+    }
+    // a walker at a stop: 1 its band left its tile; 2 its path buffer is
+    // full; 3 its walk is over
+    int need = 0;
+    if (walker && alive) need = (k < 0 || e < 0) ? 3 : t == kBtPath ? 2 : 1;
+    need = __shfl_sync(kFull, need, leader);
+    t = __shfl_sync(kFull, t, leader);
+    // a term batch stalls the whole warp on its loads: the reads whose
+    // buffers are half full or more join one that must flush
+    const bool any_full = __any_sync(kFull, need >= 2);    // every lane votes
+    const bool flush = need >= 2 || (any_full && 2 * t >= kBtPath);
+    __syncwarp();                  // the walkers' path entries
+    if (flush) {                   // the buffered steps' terms and pairs
+      // a lane's steps gl, gl + 8, ...: every rank and event load issued
+      // before any is used, then every model load, so a batch costs two
+      // dependent round trips, not two a step
+      int2 ke[kBtPerLane];
+      int32_t rank[kBtPerLane];
+      float xv[kBtPerLane], mm[kBtPerLane], msd[kBtPerLane], mls[kBtPerLane];
+#pragma unroll
+      for (int u = 0; u < kBtPerLane; ++u)
+        ke[u] = gl + kBtG * u < t ? me.path[gl + kBtG * u] : make_int2(0, 0);
+#pragma unroll
+      for (int u = 0; u < kBtPerLane; ++u) {
+        rank[u] = __ldg(rk + ke[u].x) & (kModel - 1);
+        xv[u] = __ldg(ev + ke[u].y);
+      }
+#pragma unroll
+      for (int u = 0; u < kBtPerLane; ++u) {
+        mm[u] = __ldg(model + rank[u]);
+        msd[u] = __ldg(model + kModel + rank[u]);
+        mls[u] = __ldg(model + 2 * kModel + rank[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kBtPerLane; ++u) {
+        const int s = gl + kBtG * u;
+        if (s < t) {
+          pairs[end - 1 - (n + s)] = ke[u];
+          const float m = __fadd_rn(__fmul_rn(scale, mm[u]), shift);
+          const float c = __fsub_rn(kLogNorm, mls[u]);
+          me.path[s].x = __float_as_int(emission(xv[u], m, msd[u], c));
+        }
+      }
+    }
+    __syncwarp();
+    if (flush && walker) {
+      for (int s = 0; s < t; ++s) {   // Kahan, in walk order
+        const float y = __fsub_rn(__int_as_float(me.path[s].x), comp);
+        const float tt = __fadd_rn(sum, y);
+        comp = __fsub_rn(__fsub_rn(tt, sum), y);
+        sum = tt;
+      }
+    }
+    if (flush) {
+      n += t;
+      t = 0;
+    }
+    if (need == 3) alive = false;
+    if (need == 1) {       // into the tile below, and stage the one below it
+      cp_async_wait<0>();
+      --q;
+      rel += kBtTile;
+      cur ^= 1;
+      ++walked;
+    }
+    __syncwarp();
+    if (need == 1 && q > 0) stage(me.tile[cur ^ 1], q - 1);
+  }
+  cp_async_wait<0>();
+  if (b >= 0 && walker) {
+    if (isfinite(bst)) {
+      for (int i = 0; i < kTailSteps; ++i) {  // the scan's steps past the walk: a zero term
+        const float y = __fsub_rn(0.0f, comp);
+        const float tt = __fadd_rn(sum, y);
+        comp = __fsub_rn(__fsub_rn(tt, sum), y);
+        sum = tt;
+      }
+    }
+    int32_t* hdr = out + 4 * b;
+    hdr[0] = n;
+    hdr[1] = __float_as_int(sum);
+    hdr[2] = max_gap;
+    hdr[3] = __float_as_int(bst);
+    if (tiles != nullptr) tiles[b] = walked;
+  }
 }
 
 }  // namespace
@@ -406,26 +590,33 @@ extern "C" int gb_abea_fill(const void* ranks, const void* events, const void* k
   return static_cast<int>(cudaGetLastError());
 }
 
-// The inputs of gb_abea_fill and its traces, bll_e, best and best_ev.
-// `out` (i32) holds a header of 4 per read, (pair count, sum of the
-// emission terms as float bits, longest event gap, best as float bits),
-// then (sum of the bands) x 2 pairs: read b's pairs in forward order end at
-// band_off[b+1]; the slots before them are left as they were.  Launches on
-// `stream`, does not synchronise, and returns the CUDA error of the launch.
+// The inputs of gb_abea_fill, its `order`, and its traces, bll_e, best and
+// best_ev; traces and bll_e 16-byte aligned.  `out` (i32) holds a header of
+// 4 per read, (pair count, sum of the emission terms as float bits, longest
+// event gap, best as float bits), then (sum of the bands) x 2 pairs: read
+// b's pairs in forward order end at band_off[b+1]; the slots before them
+// are left as they were.  `tiles` (i32, B), where given, gets the trace
+// tiles each walk stepped into.  Launches on `stream`, does not
+// synchronise, and returns the CUDA error of the launch.
 extern "C" int gb_abea_backtrack(const void* ranks, const void* events, const void* k_off,
                                  const void* e_off, const void* band_off, const void* params,
-                                 const void* model, const void* traces, const void* bll_e,
-                                 const void* best, const void* best_ev, int64_t n_reads,
-                                 void* out, void* stream) {
+                                 const void* model, const void* order, const void* traces,
+                                 const void* bll_e, const void* best, const void* best_ev,
+                                 int64_t n_reads, void* out, void* tiles, void* stream) {
   if (n_reads <= 0) return 0;
-  const int64_t blocks = (n_reads + kBacktrackThreads - 1) / kBacktrackThreads;
-  abea_backtrack_kernel<<<static_cast<unsigned>(blocks), kBacktrackThreads, 0,
+  cudaError_t err = cudaFuncSetAttribute(abea_backtrack_kernel,
+                                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks = (n_reads + kBtReads - 1) / kBtReads;
+  abea_backtrack_kernel<<<static_cast<unsigned>(blocks), 32, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ranks), static_cast<const float*>(events),
       static_cast<const int64_t*>(k_off), static_cast<const int64_t*>(e_off),
       static_cast<const int64_t*>(band_off), static_cast<const float*>(params),
-      static_cast<const float*>(model), static_cast<const uint8_t*>(traces),
-      static_cast<const int32_t*>(bll_e), static_cast<const float*>(best),
-      static_cast<const int32_t*>(best_ev), n_reads, static_cast<int32_t*>(out));
+      static_cast<const float*>(model), static_cast<const int32_t*>(order),
+      static_cast<const uint8_t*>(traces), static_cast<const int32_t*>(bll_e),
+      static_cast<const float*>(best), static_cast<const int32_t*>(best_ev), n_reads,
+      static_cast<int32_t*>(out), static_cast<int32_t*>(tiles));
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,8 +23,10 @@ in two versions:
   host loop over the bands;
 * `abea_backtrack`: the walk back over the traces to the (k-mer, event)
   pairs, with the float32 Kahan sum of the emission terms and the longest
-  event gap; on the card `gb_abea_backtrack` (one thread per read), on the
-  CPU `abea_backtrack_reference` (abea.py:442-481 over (B,)).
+  event gap; on the card `gb_abea_backtrack` (four reads a warp, longest
+  first, on 8 lanes each, their walkers stepping in lockstep over 64-band
+  trace tiles staged in shared memory), on the CPU
+  `abea_backtrack_reference` (abea.py:442-481 over (B,)).
 
 Every float operation of both versions rounds once, in the order the JAX
 code writes it (no fused multiply-add), so the kernels equal the plain
@@ -199,7 +201,7 @@ class ReadTables:
     `params` (B, 6): scale, shift, lp_skip, lp_stay, lp_step, lp_trim;
     `model` (3, 4096): level mean, stdv and log stdv; `order` (B,) int32:
     the reads by band count, longest first (`longest_first`), the order the
-    fill kernel starts them in.  `host` holds numpy copies of the three
+    fill and backtrack kernels start them in.  `host` holds numpy copies of the three
     offset arrays and of `order`, which the wrappers check."""
 
     ranks: torch.Tensor
@@ -262,7 +264,7 @@ def transition_params(n_kmers, n_events, scalings) -> np.ndarray:
 
 def longest_first(band_off) -> np.ndarray:
     """The reads by band count, longest first (ties in read order), as
-    int32: the order the fill kernel starts its warps in."""
+    int32: the order the fill and backtrack kernels start their warps in."""
     return np.argsort(-np.diff(np.asarray(band_off, np.int64)), kind="stable").astype(np.int32)
 
 
@@ -634,7 +636,9 @@ def abea_backtrack(t: ReadTables, f: FillResult) -> torch.Tensor:
     Checks the tables and the fill's outputs on the host before any build
     or launch.  CPU tensors take the plain version; CUDA tensors launch the
     kernel once on the current stream, without synchronising, and raise if
-    the launch fails."""
+    the launch fails.  The kernel stages the traces and corners by 16-byte
+    copies: their pointers must be 16-byte aligned (the fill's own outputs
+    always are), else ValueError."""
     _check_tables(t)
     _check_fill(t, f)
     dev = t.ranks.device
@@ -642,6 +646,9 @@ def abea_backtrack(t: ReadTables, f: FillResult) -> torch.Tensor:
         return abea_backtrack_reference(t, f)
     if dev.type != "cuda":
         raise ValueError(f"abea_backtrack runs on cuda or cpu tensors, not {dev}")
+    if f.traces.data_ptr() % 16 or f.bll_e.data_ptr() % 16:
+        raise ValueError("the backtrack kernel reads the traces and bll_e in 16-byte "
+                         "pieces: both must be so aligned")
     from genomicsbench_tpu_torch import _kernels
 
     lib = _kernels.load()
@@ -653,9 +660,9 @@ def abea_backtrack(t: ReadTables, f: FillResult) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gb_abea_backtrack(t.ranks.data_ptr(), t.events.data_ptr(), t.k_off.data_ptr(),
                                    t.e_off.data_ptr(), t.band_off.data_ptr(),
-                                   t.params.data_ptr(), t.model.data_ptr(),
+                                   t.params.data_ptr(), t.model.data_ptr(), t.order.data_ptr(),
                                    f.traces.data_ptr(), f.bll_e.data_ptr(), f.best.data_ptr(),
-                                   f.best_ev.data_ptr(), B, out.data_ptr(), stream)
+                                   f.best_ev.data_ptr(), B, out.data_ptr(), None, stream)
     if rc != 0:
         raise RuntimeError(f"abea backtrack kernel launch failed with cudaError {rc}")
     abea_backtrack.launches += 1

@@ -11,9 +11,10 @@ best predecessor (ties to the highest j), and the peak score.
 Two versions of one function, `chain_dp`, over flat anchors (all reads
 concatenated, read r at [offs[r], offs[r+1])):
 
-* on the card, the hand-written CUDA kernel `csrc/chain.cu` (one warp per
-  read, 32 candidates per step, stopping at the max_skip break; see the
-  note there), one launch for the whole batch;
+* on the card, the hand-written CUDA kernel `csrc/chain.cu` (a read on a
+  group of 8 lanes, four a warp, 4 candidates a lane, its recent anchors in
+  a shared-memory ring, stopping at the max_skip break; see the note
+  there), one launch for the whole batch;
 * on the CPU, `chain_dp_reference`, the plain PyTorch version: one `step`
   of `_run_scan` per anchor index over an (active reads, window) tile in
   visit order, with the window starts from the host helper
@@ -51,6 +52,14 @@ MAX_DD_BITS = 22  # dd <= 2^22 (max_dist_x larger than this is rejected)
 # breakdown is in csrc/chain.cu); the kernel's bound counts them
 CHAIN_INT32_OPS_PER_CANDIDATE = 22
 CHAIN_F64_OPS_PER_CANDIDATE = 4
+# The kernel's shared memory (csrc/chain.cu): four reads a warp, each a
+# ring of 96 anchors of 28 bytes and a bitmap of its window's positions
+# (three more for the quads' alignment), one 32-bit word per 32, rounded to
+# 128 bytes and skewed by 16; a block holds at most SHARED_MAX bytes (a
+# Hopper block's opt-in)
+CHAIN_READS_PER_WARP = 4
+CHAIN_RING_BYTES = 96 * 28
+SHARED_MAX = 232_448
 
 
 def compute_window_starts(x: np.ndarray, max_dist_x: int, max_iter: int) -> np.ndarray:
@@ -117,6 +126,22 @@ def _host_offsets(offs: torch.Tensor, host_offs, n_anchors: int) -> np.ndarray:
     if (np.diff(h) < 0).any():
         raise ValueError("offs must be nondecreasing")
     return h
+
+
+def _max_window(h_offs: np.ndarray, max_iter: int, window: int) -> int:
+    """An upper bound on the candidates of any anchor of the batch (the
+    longest read less one, max_iter, window when given): the width of the
+    kernel's bitmap of max_skip marks."""
+    n_max = int(np.diff(h_offs).max()) if len(h_offs) > 1 else 0
+    w = min(max(n_max - 1, 0), int(max_iter))
+    return min(w, int(window)) if window > 0 else w
+
+
+def _warp_shared_bytes(max_window: int) -> int:
+    """The shared memory one warp of the kernel needs at a window of
+    max_window candidates."""
+    words = -(-(max_window + 3) // 32)
+    return CHAIN_READS_PER_WARP * (-(-(CHAIN_RING_BYTES + 4 * words) // 128) * 128 + 16)
 
 
 def _launch_order(h_offs: np.ndarray) -> np.ndarray:
@@ -290,7 +315,11 @@ def chain_dp(x, y, offs, avg_qspan, max_dist_x, max_dist_y, bw, n_segs,
     fetched.  The kernel's warps take the reads longest first, in an order
     computed from the checked host offsets.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel on the current stream,
-    without synchronising, and raises if the launch fails.
+    without synchronising, and raises if the launch fails.  The kernel
+    keeps a bitmap of each read's window in shared memory: a batch whose
+    window (the longest read less one, max_iter, window) needs more than a
+    block holds is refused with ValueError before the launch (past some
+    440,000 candidates).
     """
     _check_inputs(x, y, offs, avg_qspan, max_dist_x, max_dist_y, bw, n_segs)
     for name, v in (("max_iter", max_iter), ("max_skip", max_skip), ("window", window)):
@@ -305,13 +334,17 @@ def chain_dp(x, y, offs, avg_qspan, max_dist_x, max_dist_y, bw, n_segs,
         raise ValueError(f"chain_dp runs on cuda or cpu tensors, not {dev}")
     from genomicsbench_tpu_torch import _kernels
 
+    max_window = _max_window(h_offs, max_iter, window)
+    if _warp_shared_bytes(max_window) > SHARED_MAX:
+        raise ValueError(f"a window of {max_window} candidates needs "
+                         f"{_warp_shared_bytes(max_window)} bytes of shared memory a warp, "
+                         f"more than the {SHARED_MAX} a block holds")
     lib = _kernels.load()
     R, T = offs.numel() - 1, x.numel()
     # pinned, so the copy waits for no earlier work on the stream
     order = torch.from_numpy(_launch_order(h_offs)).pin_memory().to(dev, non_blocking=True)
     scores, parents, peak = torch.empty((3, T), dtype=torch.int32, device=dev)
     visited = torch.empty(R, dtype=torch.int64, device=dev)
-    targets = torch.empty(T, dtype=torch.int32, device=dev)     # the kernel's scratch
     if R == 0:
         return scores, parents, peak, visited
     with torch.cuda.device(dev):
@@ -320,8 +353,8 @@ def chain_dp(x, y, offs, avg_qspan, max_dist_x, max_dist_y, bw, n_segs,
             x.data_ptr(), y.data_ptr(), offs.data_ptr(), order.data_ptr(),
             avg_qspan.data_ptr(), max_dist_x.data_ptr(), max_dist_y.data_ptr(),
             bw.data_ptr(), n_segs.data_ptr(), R, int(max_iter), int(max_skip),
-            int(bool(is_cdna)), int(window), targets.data_ptr(), scores.data_ptr(),
-            parents.data_ptr(), peak.data_ptr(), visited.data_ptr(), stream)
+            int(bool(is_cdna)), int(window), max_window, scores.data_ptr(),
+            parents.data_ptr(), peak.data_ptr(), visited.data_ptr(), None, stream)
     if rc != 0:
         raise RuntimeError(f"chain kernel launch failed with cudaError {rc}")
     chain_dp.launches += 1

@@ -39,10 +39,11 @@ from genomicsbench_tpu_torch.config import ABEA_PROFILES, AbeaRunProfile, load_a
 from genomicsbench_tpu_torch.ops import abea
 from genomicsbench_tpu_torch.ops import eventalign as ea
 
-from torch_abea_cases import (MAIN_SAMPLE, MAIN_SAMPLE_FAILED, MAIN_SAMPLE_SHA256, _model,
-                              bench_abea_reads, check_events, edge_cases,
+from torch_abea_cases import (BT_TILE, MAIN_SAMPLE, MAIN_SAMPLE_FAILED, MAIN_SAMPLE_SHA256,
+                              _model, bench_abea_reads, check_events, edge_cases,
                               eventalign_reads_case, load_align_golden, load_events_golden,
-                              pairs_digest, sliding_window, window_fill_codes)
+                              pairs_digest, sliding_window, tile_walk_backtrack,
+                              window_fill_codes)
 
 # pytest-xdist runs several workers on the CPU's cores; torch's own thread
 # pool in each would oversubscribe them and slow the run many times over
@@ -178,13 +179,28 @@ def _unpack(packed):
     return (p & 3).reshape(*packed.shape[:-1], abea.BW)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_run(label):
+    """JAX's fill and backtrack scans on a named input set, once per
+    process."""
+    seqs, evs, sc, model = _port_run(label)[0]
+    return _jax_fill(seqs, evs, sc, model)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_align(label):
+    """JAX align_batch on a named input set, once per process."""
+    seqs, evs, sc, model = _port_run(label)[0]
+    return jax_abea.align_batch(seqs, evs, *model, sc)
+
+
 @pytest.mark.parametrize("label", BATCHES)
 def test_fill_and_backtrack_against_jax_scans(label):
     """abea_fill_reference against JAX `_abea_scan` and
     abea_backtrack_reference against `_abea_backtrack_scan`, on each read's
     own bands."""
     (seqs, evs, sc, model), t, f, out = _port_run(label)
-    traces, bll_es, trace1, best, best_ev, sum_em, max_gap = _jax_fill(seqs, evs, sc, model)
+    traces, bll_es, trace1, best, best_ev, sum_em, max_gap = _jax_run(label)
     band_off = t.host["band_off"]
     got_tr = _unpack(f.traces.numpy().reshape(-1, abea.BW // 4))
     got_be = f.bll_e.numpy()
@@ -308,7 +324,7 @@ def test_align_batch_against_jax(label):
     JAX align_batch: the pairs and the QC flags exactly."""
     (seqs, evs, sc, model), t, _, out = _port_run(label)
     got = abea._collect(t, out)
-    want = jax_abea.align_batch(seqs, evs, *model, sc)
+    want = _jax_align(label)
     assert got.failed == want.failed
     for b, (g, w) in enumerate(zip(got.pairs, want.pairs)):
         assert g.dtype == np.int32 and g.shape == w.shape, (label, b)
@@ -325,6 +341,14 @@ def test_golden_pairs():
         np.testing.assert_array_equal(res.pairs[b], exp, err_msg=f"golden read {b}")
 
 
+@functools.lru_cache(maxsize=None)
+def _main_sample_jax():
+    """JAX align_batch on the main path's first MAIN_SAMPLE reads, once
+    per process."""
+    seqs, evs, sc = bench_abea_reads(MAIN_SAMPLE)
+    return jax_abea.align_batch(seqs, evs, *_model(), sc)
+
+
 def test_main_path_sample_against_jax():
     """The first 512 reads of the 10,000-read main path: the port's plain
     version equals JAX align_batch, and its QC count and pairs digest are
@@ -332,12 +356,78 @@ def test_main_path_sample_against_jax():
     mean, stdv = _model()
     seqs, evs, sc = bench_abea_reads(MAIN_SAMPLE)
     got = abea.align_batch(seqs, evs, mean, stdv, sc, device="cpu")
-    want = jax_abea.align_batch(seqs, evs, mean, stdv, sc)
+    want = _main_sample_jax()
     assert got.failed == want.failed
     for b, (g, w) in enumerate(zip(got.pairs, want.pairs)):
         np.testing.assert_array_equal(g, w, err_msg=f"main path read {b}")
     assert sum(got.failed) == MAIN_SAMPLE_FAILED
     assert pairs_digest(got.pairs) == MAIN_SAMPLE_SHA256
+
+
+def _tile_walk(t, f):
+    """`tile_walk_backtrack` (the model of gb_abea_backtrack's schedule) on
+    a batch's tables and fill."""
+    return tile_walk_backtrack(t.ranks.numpy(), t.events.numpy(), t.host["k_off"],
+                               t.host["e_off"], t.host["band_off"], t.params.numpy(),
+                               t.model.numpy(), t.host["order"], f.traces.numpy(),
+                               f.bll_e.numpy(), f.best.numpy(), f.best_ev.numpy())
+
+
+@pytest.mark.parametrize("label", BATCHES)
+def test_tile_walk_model_against_plain_and_jax(label):
+    """The backtrack kernel's schedule (tiles of 64 bands staged two deep,
+    the walk's steps through a 128-step path buffer, the terms a buffer at a
+    time, the Kahan chain in walk order) gives the plain version's buffer
+    bit for bit, the float sums' bits included; against JAX's scans and
+    align_batch, each read's pair count, longest gap, pairs and QC flag
+    exactly, the sum within the module's bound (XLA contracts FMAs)."""
+    (seqs, evs, sc, model), t, f, out = _port_run(label)
+    got, stats = _tile_walk(t, f)
+    np.testing.assert_array_equal(got, out)
+    assert stats["tiles"].sum() > 0
+    _, _, _, _, _, sum_em, max_gap = _jax_run(label)
+    hdr = got[:4 * len(seqs)].reshape(-1, 4)
+    np.testing.assert_array_equal(hdr[:, 2], max_gap)
+    np.testing.assert_allclose(hdr[:, 1].view(np.float32), sum_em, rtol=BEST_RTOL, atol=0)
+    mine, want = abea._collect(t, got), _jax_align(label)
+    assert mine.failed == want.failed
+    for b, (g, w) in enumerate(zip(mine.pairs, want.pairs)):
+        np.testing.assert_array_equal(g, w, err_msg=f"{label} read {b}")
+
+
+def test_tile_walk_model_main_path_sample():
+    """The model on the main path's first 64 reads: the plain version's
+    buffer bit for bit, JAX align_batch's pairs and QC flags exactly; every
+    walk crosses tiles."""
+    (seqs, evs, sc, model), t, f, _, _ = _window_run("main64")
+    got, stats = _tile_walk(t, f)
+    np.testing.assert_array_equal(got, abea.abea_backtrack(t, f).numpy())
+    want = _main_sample_jax()
+    mine = abea._collect(t, got)
+    assert mine.failed == want.failed[:64]
+    for b, (g, w) in enumerate(zip(mine.pairs, want.pairs[:64])):
+        np.testing.assert_array_equal(g, w, err_msg=f"main path read {b}")
+    steps = stats["steps"]
+    assert (stats["tiles"] >= -(-steps // BT_TILE)).all() and stats["tiles"].min() > 10
+
+
+@pytest.mark.parametrize("label", ["diagonal_walks", "short_walks", "no_walk"])
+def test_tile_walk_edges(label):
+    """The backtrack's tile edges: diagonal moves that leave a tile from its
+    first band and from its second (landing two bands down, in the tile
+    below); walks shorter than a tile; a read whose best is not finite and
+    which has no walk (its header 0 pairs, a zero sum, no tile)."""
+    _, t, f, out = _port_run(label)
+    _, stats = _tile_walk(t, f)
+    best = f.best.numpy()
+    if label == "diagonal_walks":
+        assert (stats["diag_edge"] > 0).any(0).all()
+    elif label == "short_walks":
+        assert (stats["tiles"] == 1).sum() >= 3 and stats["steps"].max() < BT_TILE
+    else:
+        assert not np.isfinite(best[0]) and np.isfinite(best[1])
+        assert out[:4].tolist()[:3] == [0, 0, 0] and stats["tiles"].tolist()[0] == 0
+        assert stats["steps"][1] > 0
 
 
 def test_bench_generator_is_scale_bench_stream():

@@ -16,11 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from genomicsbench_tpu_torch import _kernels
 from genomicsbench_tpu_torch.ops import abea
 from genomicsbench_tpu_torch.ops.eventalign import eventalign_reads
 
 from torch_abea_cases import (_model, bench_abea_reads, edge_cases, eventalign_reads_case,
-                              load_align_golden, wave_reads)
+                              load_align_golden, tile_walk_backtrack, wave_reads)
 
 pytestmark = pytest.mark.cuda
 EDGES = edge_cases()
@@ -125,3 +126,47 @@ def test_wrappers_refuse_mixed_devices(card):
     t.model = t.model.cpu()
     with pytest.raises(ValueError, match="model"):
         abea.abea_fill(t)
+
+
+@pytest.mark.parametrize("label", ["diagonal_walks", "short_walks", "no_walk", "main"])
+def test_backtrack_tiles_match_model(card, label):
+    """The backtrack kernel's tiles per walk (its C entry's optional
+    `tiles` output) and buffer equal the model's (`tile_walk_backtrack`)
+    read by read: diagonal moves across tile edges, walks shorter than a
+    tile, a read with no walk, and 200 main-path reads."""
+    seqs, evs, sc = bench_abea_reads(200) if label == "main" else EDGES[label]
+    t = abea.upload_reads(seqs, evs, *_model(), sc, card)
+    f = abea.abea_fill(t)
+    out = torch.full((4 * t.n_reads + 2 * t.n_bands,), -1, dtype=torch.int32, device=card)
+    tiles = torch.full((t.n_reads,), -1, dtype=torch.int32, device=card)
+    ptrs = [x.data_ptr() for x in (t.ranks, t.events, t.k_off, t.e_off, t.band_off, t.params,
+                                   t.model, t.order, f.traces, f.bll_e, f.best, f.best_ev)]
+    rc = _kernels.load().gb_abea_backtrack(*ptrs, t.n_reads, out.data_ptr(), tiles.data_ptr(),
+                                           torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    want, stats = tile_walk_backtrack(
+        t.ranks.cpu().numpy(), t.events.cpu().numpy(), t.host["k_off"], t.host["e_off"],
+        t.host["band_off"], t.params.cpu().numpy(), t.model.cpu().numpy(), t.host["order"],
+        f.traces.cpu().numpy(), f.bll_e.cpu().numpy(), f.best.cpu().numpy(),
+        f.best_ev.cpu().numpy())
+    np.testing.assert_array_equal(out.cpu().numpy(), want)
+    np.testing.assert_array_equal(tiles.cpu().numpy(), stats["tiles"])
+
+
+@pytest.mark.parametrize("which", ["traces", "bll_e"])
+def test_backtrack_refuses_misaligned_traces(card, which):
+    """The backtrack kernel stages the traces and corners by 16-byte
+    copies: a fill output that does not start on 16 bytes is refused with
+    ValueError before any launch."""
+    seqs, evs, sc = EDGES["short_walks"]
+    t = abea.upload_reads(seqs, evs, *_model(), sc, card)
+    f = abea.abea_fill(t)
+    x = getattr(f, which)
+    shifted = torch.empty(x.numel() + 16, dtype=x.dtype, device=card)[1:x.numel() + 1]
+    shifted.copy_(x)
+    setattr(f, which, shifted)
+    before = abea.abea_backtrack.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        abea.abea_backtrack(t, f)
+    assert abea.abea_backtrack.launches == before

@@ -24,7 +24,8 @@ from genomicsbench_tpu_torch.io.anchors import (AnchorCall, anchor_calls_from_di
 from genomicsbench_tpu_torch.ops import chain
 from genomicsbench_tpu_torch.oracle.chain import chain_dp_oracle
 
-from torch_chain_cases import GOLDEN, bench_chain_calls, edge_cases, load_golden
+from torch_chain_cases import (GOLDEN, RING, bench_chain_calls, edge_cases, lane_group_chain,
+                               load_golden)
 
 # pytest-xdist runs several workers on the CPU's cores; torch's own thread
 # pool in each would oversubscribe them and slow the run many times over
@@ -83,6 +84,12 @@ def edge_results():
             for label, (dicts, kw) in EDGES.items()}
 
 
+@pytest.fixture(scope="module")
+def edge_jax():
+    """JAX chain_batch on every edge case, run once."""
+    return {label: _jax_batch(dicts, **kw) for label, (dicts, kw) in EDGES.items()}
+
+
 def test_goldens(golden_port, golden_jax):
     """All 11 golden calls in one batch: equal to the .gold rows of the
     compiled reference and to JAX chain_batch."""
@@ -97,13 +104,14 @@ def test_goldens(golden_port, golden_jax):
 
 
 @pytest.mark.parametrize("label", sorted(EDGES))
-def test_edges_match_jax(label, edge_results):
+def test_edges_match_jax(label, edge_results, edge_jax):
     """Multi-rid reads, n_segs = 2 with sid 0/1 and both is_cdna values,
     integer and 4-decimal avg_qspan, max_skip = 2, max_iter = 50, reads of
-    0 and 1 anchors, unsorted anchors, window = 128 below the requirement."""
+    0 and 1 anchors, unsorted anchors, window = 128 below the requirement,
+    dense anchors whose walks visit their whole windows."""
     dicts, kw = EDGES[label]
     got = edge_results[label]
-    want = _jax_batch(dicts, **kw)
+    want = edge_jax[label]
     for r, d in enumerate(dicts):
         n = len(d["x"])
         np.testing.assert_array_equal(_rows(got, r, n), _rows(want, r, n),
@@ -164,6 +172,92 @@ def test_visited_counts_the_window(label, max_skip):
             assert 0 < visited[r] < w.sum()
         else:
             assert visited[r] == w.sum()
+
+
+def _model(dicts, kw):
+    """`lane_group_chain` (the model of gb_chain_dp's schedule) and the plain
+    version on the same flat inputs."""
+    calls = anchor_calls_from_dicts(dicts)
+    t, _, _ = chain.upload_calls(calls, "cpu")
+    args = [t[k] for k in chain.CHAIN_DP_INPUTS]
+    opts = (kw.get("max_iter", 5000), kw.get("max_skip", 25), kw.get("is_cdna", False),
+            kw.get("window") or 0)
+    got = lane_group_chain(*(a.numpy() for a in args), *opts)
+    want = chain.chain_dp_reference(*args, *opts)
+    return calls, t["offs"].numpy(), got, [w.numpy() for w in want]
+
+
+@pytest.mark.parametrize("label", sorted(EDGES))
+def test_lane_group_model_on_edges(label, edge_jax):
+    """The chain kernel's schedule (8 lanes x 4 candidates a read, the ring
+    of 96 anchors filled a block ahead with deeper candidates from the
+    outputs, the max_skip marks OR-reduced in the chunk and kept past it in
+    a bitmap, the segmented scans, the break and improvement ballots, the
+    two-pointer 8 lanes a round) equals the plain version's four outputs
+    and JAX chain_batch's rows bit for bit."""
+    dicts, kw = EDGES[label]
+    calls, offs, got, want = _model(dicts, kw)
+    for g, w in zip(got[:4], want):
+        np.testing.assert_array_equal(g, w)
+    jx = edge_jax[label]
+    for r, c in enumerate(calls):
+        rows = np.stack([g[offs[r]:offs[r + 1]] for g in got[:3]], 1)
+        np.testing.assert_array_equal(rows, _rows(jx, r, c.n), err_msg=f"{label} read {r}")
+    stats = got[4]
+    assert (stats["deep"] <= stats["loaded"]).all()
+    if label == "deep_window":     # walks deeper than twice the ring, past it in memory
+        assert stats["most"].max() >= 2 * RING and stats["deep"].sum() > 0
+
+
+def test_lane_group_model_on_goldens(golden_port):
+    """The model on the 11 golden calls: the plain version's outputs and
+    the .gold rows."""
+    calls, gold = load_golden()
+    _, offs, got, want = _model(calls, {})
+    for g, w in zip(got[:4], want):
+        np.testing.assert_array_equal(g, w)
+    for k, exp in enumerate(gold):
+        rows = np.stack([g[offs[k]:offs[k + 1]] for g in got[:3]], 1)
+        np.testing.assert_array_equal(rows, exp, err_msg=f"call {k}")
+
+
+def test_lane_group_model_main_path_sample():
+    """24 reads of the main path's generator: the model equals the plain
+    version and JAX chain_batch, and every candidate comes from the ring
+    (the main path's windows are shallow: about 27 visited an anchor)."""
+    dicts = bench_chain_calls(24)
+    calls, offs, got, want = _model(dicts, {})
+    for g, w in zip(got[:4], want):
+        np.testing.assert_array_equal(g, w)
+    jx = _jax_batch(dicts)
+    for r, c in enumerate(calls):
+        rows = np.stack([g[offs[r]:offs[r + 1]] for g in got[:3]], 1)
+        np.testing.assert_array_equal(rows, _rows(jx, r, c.n), err_msg=f"read {r}")
+    stats = got[4]
+    assert stats["deep"].sum() == 0 and stats["loaded"].sum() > got[3].sum()
+
+
+def test_kernel_window_bounds():
+    """The kernel's bitmap width (`_max_window`) bounds every anchor's
+    window on the edge cases, and a warp's shared memory
+    (`_warp_shared_bytes`) fits a Hopper block up to windows of some
+    440,000 candidates, which the wrapper refuses past that."""
+    for label, (dicts, kw) in EDGES.items():
+        calls = anchor_calls_from_dicts(dicts)
+        offs = np.concatenate([[0], np.cumsum([c.n for c in calls])])
+        mi, win = kw.get("max_iter", 5000), kw.get("window") or 0
+        bound = chain._max_window(offs, mi, win)
+        for c in calls:
+            w = np.arange(c.n) - chain.compute_window_starts(c.x, c.max_dist_x, mi)
+            if win:
+                w = np.minimum(w, win)
+            assert c.n == 0 or w.max() <= bound, label
+    assert chain._max_window(np.array([0, 3000]), 5000, 0) == 2999
+    assert chain._max_window(np.array([0, 3000]), 50, 0) == 50
+    assert chain._max_window(np.array([0, 3000]), 5000, 128) == 128
+    assert chain._warp_shared_bytes(0) == chain._warp_shared_bytes(29) == 4 * (2816 + 16)
+    assert chain._warp_shared_bytes(440_000) <= chain.SHARED_MAX
+    assert chain._warp_shared_bytes(460_000) > chain.SHARED_MAX
 
 
 @pytest.mark.parametrize("avg", [15.0, 19.5, 13.0, 17.0,

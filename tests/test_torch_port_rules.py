@@ -224,7 +224,7 @@ def _chain_args():
 
 
 @pytest.mark.parametrize("fault", ["dtype", "contiguity", "length", "offs_order",
-                                   "offs_end", "window", "order_keyword"])
+                                   "offs_end", "window", "order_keyword", "targets_keyword"])
 def test_chain_wrapper_checks_inputs(fault, monkeypatch):
     """chain_dp refuses what the kernel does not take, on the host, before
     it would build or launch anything."""
@@ -248,6 +248,9 @@ def test_chain_wrapper_checks_inputs(fault, monkeypatch):
     elif fault == "order_keyword":
         # the warps' read order comes from the checked offsets, never the caller
         kw, err = dict(order=torch.zeros(5, dtype=torch.int64)), TypeError
+    elif fault == "targets_keyword":
+        # the kernel keeps its max_skip marks in shared memory: no scratch
+        kw, err = dict(targets=torch.zeros(42, dtype=torch.int32)), TypeError
     else:
         kw, err = dict(window=-1), ValueError
     with pytest.raises(err):

@@ -214,6 +214,21 @@ def edge_cases(longest=5000):
     # lengths from 10 to 5,000 bases in one batch
     out["mixed_lengths"] = batch([(n, 1.2) for n in (10, 37, 250, 1000, longest // 2, longest,
                                                      120)])
+    # one event per k-mer (every other read one short): walks of nearly all
+    # diagonal moves (two bands a step), at lengths that put the reads'
+    # bands at many offsets from the backtrack's 64-band tile edges, so
+    # diagonals cross the edges from a tile's first and its second band
+    seqs, evs, sc = batch([(n, 1.0) for n in (70, 83, 97, 111, 126, 140, 151, 167)])
+    evs = [(mean[_ranks(s_)] * np.float32(sc_[0]) + np.float32(sc_[1])).astype(np.float32)
+           [:len(s_) - KMER + 1 - (i_ % 2)] for i_, (s_, sc_) in enumerate(zip(seqs, sc))]
+    out["diagonal_walks"] = (seqs, evs, sc)
+    # walks shorter than one tile (reads of 4-30 k-mers)
+    out["short_walks"] = batch([(n, 1.0) for n in (9, 12, 17, 23, 35)])
+    # a read with no walk: its event means are NaN (as a zero-length event
+    # gives), so every cell of its matrix is NaN and its best stays -inf;
+    # beside it a read that walks
+    seqs, evs, sc = batch([(80, 1.0), (120, 1.2)])
+    out["no_walk"] = (seqs, [np.full(len(evs[0]), np.nan, np.float32), evs[1]], sc)
     return out
 
 
@@ -404,3 +419,120 @@ def wave_reads(n_reads, seed, lo=60, hi=400):
         seqs.append(seq)
         evs.append(ev if len(ev) else mean[_ranks(seq)[:1]].astype(np.float32))
     return seqs, evs, sc
+
+
+# gb_abea_backtrack's schedule (csrc/abea.cu): tiles of BT_TILE bands
+# staged two deep, a path buffer of BT_PATH steps between term batches
+BT_TILE, BT_PATH, TAIL_STEPS = 64, 128, 3
+FROM_U, FROM_L = 1, 2
+
+
+def _emission_f32(x, rank, scale, shift, model):
+    """One step's emission term in float32, each operation rounding once in
+    the kernel's order: (x - (scale * mean + shift)) / stdv, then
+    (-0.918938 - log stdv) + (-0.5 a) a."""
+    f32 = np.float32
+    r = int(rank) & 4095
+    m = f32(f32(scale) * model[0][r]) + f32(shift)
+    a = (f32(x) - m) / model[1][r]
+    return (f32(-0.918938) - model[2][r]) + (f32(-0.5) * a) * a
+
+
+def tile_walk_backtrack(ranks, events, k_off, e_off, band_off, params, model, order, traces,
+                        bll_e, best, best_ev):
+    """A numpy model of `gb_abea_backtrack`'s schedule: the reads in
+    `order`, each walk over tiles of BT_TILE bands (the 25-byte trace rows
+    and bll_e of bands 64q .. 64q + 63, zero past the arrays' ends) staged
+    from the flat arrays, the tile below staged as the walk enters a tile;
+    the walk's (k-mer, event) steps into a path buffer of BT_PATH, each full
+    buffer (and the last) turned into emission terms and pairs, written
+    back to front into the read's slot, and the terms added into the
+    float32 Kahan sum in walk order, then the TAIL_STEPS zero terms.  The
+    kernel runs four such walks a warp in lockstep, a round until all four
+    have stopped, and flushes a half-full buffer beside a full one; that
+    changes no read's tiles, steps, terms or sum, so the model walks the
+    reads one at a time.
+
+    Returns the kernel's int32 buffer (headers, then pairs; -1 where no
+    pair is written) and per read: `tiles` (tiles the walk stepped into),
+    `steps`, and `diag_edge` (diagonal moves that crossed a tile edge from
+    the tile's first band and from its second, shape (B, 2))."""
+    f32 = np.float32
+    k_off, e_off, band_off = (np.asarray(a, np.int64) for a in (k_off, e_off, band_off))
+    traces = np.asarray(traces, np.uint8).reshape(-1)
+    bll_e = np.asarray(bll_e, np.int32)
+    params, model = np.asarray(params, f32), np.asarray(model, f32)
+    ranks, events = np.asarray(ranks), np.asarray(events, f32)
+    B, NB = len(k_off) - 1, int(band_off[-1])
+    out = np.full(4 * B + 2 * NB, -1, np.int32)
+    pairs = out[4 * B:].reshape(NB, 2) if NB else np.zeros((0, 2), np.int32)
+    stats = dict(tiles=np.zeros(B, np.int64), steps=np.zeros(B, np.int64),
+                 diag_edge=np.zeros((B, 2), np.int64))
+    W, LIVE = 100, 25
+
+    def stage(q):
+        tr = np.zeros(BT_TILE * LIVE, np.uint8)
+        seg = traces[q * BT_TILE * LIVE:(q + 1) * BT_TILE * LIVE]
+        tr[:len(seg)] = seg
+        be = np.zeros(BT_TILE, np.int32)
+        seg = bll_e[q * BT_TILE:(q + 1) * BT_TILE]
+        be[:len(seg)] = seg
+        return tr, be
+
+    with np.errstate(all="ignore"):
+        for b in np.asarray(order, np.int64).tolist():
+            nk = int(k_off[b + 1] - k_off[b])
+            end = int(band_off[b + 1])
+            scale, shift = params[b, 0], params[b, 1]
+            n, gap, max_gap = 0, 0, 0
+            total, comp = f32(0), f32(0)
+            if np.isfinite(best[b]):
+                k, e = nk - 1, int(best_ev[b])
+                band0 = int(band_off[b]) + e + k
+                q, rel = divmod(band0, BT_TILE)
+                bufs = [stage(q), stage(q - 1) if q > 0 else None]
+                cur, walked = 0, 1
+                while True:
+                    steps, need = [], 0
+                    tr, be = bufs[cur]
+                    while k >= 0 and e >= 0:
+                        if rel < 0:
+                            need = 1
+                            break
+                        if len(steps) == BT_PATH:
+                            need = 2
+                            break
+                        steps.append((k, e))
+                        off = min(max(int(be[rel]) - e, 0), W - 1)
+                        frm = (int(tr[rel * LIVE + (off >> 2)]) >> (2 * (off & 3))) & 3
+                        dk, de = int(frm != FROM_U), int(frm != FROM_L)
+                        if dk and de and rel < 2:
+                            stats["diag_edge"][b, rel] += 1
+                        k, e, rel = k - dk, e - de, rel - dk - de
+                        gap = gap + 1 if frm == FROM_L else 0
+                        max_gap = max(max_gap, gap)
+                    for s, (ks, es) in enumerate(steps):
+                        pairs[end - 1 - (n + s)] = (ks, es)
+                    terms = [_emission_f32(events[e_off[b] + es], ranks[k_off[b] + ks], scale, shift,
+                                           model) for ks, es in steps]
+                    for term in terms:                  # Kahan, in walk order
+                        y = f32(term) - comp
+                        tt = total + y
+                        comp = (tt - total) - y
+                        total = tt
+                    n += len(steps)
+                    if need == 0:
+                        break
+                    if need == 1:
+                        q, rel, cur, walked = q - 1, rel + BT_TILE, cur ^ 1, walked + 1
+                        bufs[cur ^ 1] = stage(q - 1) if q > 0 else None
+                for _ in range(TAIL_STEPS):
+                    y = f32(0) - comp
+                    tt = total + y
+                    comp = (tt - total) - y
+                    total = tt
+                stats["tiles"][b] = walked
+            stats["steps"][b] = n
+            out[4 * b:4 * b + 4] = (n, np.array(total, f32).view(np.int32), max_gap,
+                                    np.array(best[b], f32).view(np.int32))
+    return out, stats
