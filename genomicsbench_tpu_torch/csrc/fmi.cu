@@ -15,9 +15,8 @@
 // `fmi_extend_reference`) compute, value for value: the emits in each work
 // item's walk order, the caps and overflow flag of the smem1 walk (at most
 // CP intervals in a list, ME emits per item), and per work item the rank
-// lines and extension steps of its walk.  The JAX walks are lockstep state
-// machines with round caps because XLA needs one while_loop over all lanes;
-// here one thread runs one work item's scalar loop to its end (the recipe of
+// lines and extension steps of its walk.  seed3 and extend run one work
+// item's scalar loop a thread (the recipe of
 // tools/ref_drivers/fmi_gold.cpp:106-159 and :246-290), and it always ends.
 //
 // The table: one 32-byte line per 64 BWT rows, int32 [occ0..occ3 | plane0
@@ -49,19 +48,67 @@
 //   new a, new other                                                 2
 //   the next base (address, load, test) and the loop's bookkeeping   6   -> 91
 // The bytes bound is the larger at these shapes (about 1.9 lines, 61 B, per
-// step against 91 ops).  The design keeps loads in flight: one thread per
-// work item with its lists in local memory (the registers stay few), 128
-// threads per block, and both lines of a step requested before either is
-// used.  The reads (uint8 codes) are read byte by byte through L1.
+// step against 91 ops).
+//
+// smem1's design: a work item on a lane group of kGroup lanes, 32 / kGroup
+// items a warp, the walk run as the plain version's round machine (scan /
+// forward / backward) in rounds that every lane of the warp runs together.
+// A thread per item, as this walk was first written, ran its lanes' walks
+// in different phases one after another (a warp waited for the sum of its
+// lanes' paths), extended a backward column's intervals one after another
+// (a load latency each), and kept its lists in local memory.  Here, in a
+// round every group makes at most one extension a lane, all of them
+// issued before any is used, then updates its state by selects:
+//   - scan: where a pivot ended (or the item began), the next position
+//     that seeds, over the staged bases, no load; the forward step follows
+//     in the same round;
+//   - forward: one step, made alike by every lane of the group (the same
+//     lines, one request), so the group's state needs no shuffle;
+//   - backward: kGroup intervals of the column a round, one a lane, the
+//     first column longest first; the survivors compacted in list order by
+//     __ballot_sync and __popc, the size test against the previous
+//     survivor read by a shuffle (or the chunk before's last), the column's
+//     one emit (its first interval dying) from the same ballots.
+// The counters and caps are the sequential walk's: an ME overflow at a
+// column's first interval stops the item there and counts that interval's
+// extension only, though the group's other lanes extended theirs; a CP
+// overflow in the forward collection stops it the same way.  One list of
+// CP (k, s, e) slots a group in shared memory, no local memory: the forward
+// collection fills it from the top down, every column reads it upwards
+// from `base`, and survivors are compacted in place from 0 (a round reads
+// before it writes, and no survivor lands above the slot it came from).
+// The read's bases are staged once an item into the group's shared slice
+// by 16-byte loads (reads wider than kStageMax stay in global memory and
+// are read through the same pointer).  A group that ends its item takes
+// the next from a per-launch counter, so warps stay resident across items
+// and none waits for its slowest item.  tests/torch_fmi_cases.py
+// `lane_group_smem1` models this schedule and the CPU tests hold it bit
+// for bit against the plain version.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
+#include <vector>
 
 namespace {
 
 constexpr int kCpMax = 24;     // interval-list slots (JAX's CP cap)
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // seed3 and extend: a thread per work item
+// smem1: lanes a work item (4 beside 2 and 8 in tools/fmi_head_ab.py
+// --variants: pass 1 3% and 29% faster, pass 2 11% and 34%), items a warp,
+// warps a block, and the most bytes of a read a group stages (wider reads
+// are read from global memory)
+constexpr int kGroup = 4;
+constexpr int kGroups = 32 / kGroup;
+constexpr int kWarps = 4;
+constexpr int kStageMax = 1024;
+// blocks an SM the compiler keeps room for: 64 registers a thread, 32 warps
+// an SM without a spill (tools/fmi_head_ab.py --variants: 3.5% faster than
+// the 68 it takes unbounded; 10 and 12 spill and run 28% and 70% slower)
+constexpr int kMinBlocks = 8;
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(32 % kGroup == 0 && kGroup < 32, "a lane group divides a warp");
 
 struct Fmd {
     const int4* __restrict__ table;   // 2 int4 per line: counts, planes
@@ -121,104 +168,229 @@ __device__ __forceinline__ int base_at(const uint8_t* __restrict__ q, int pos, i
     return __ldg(q + (pos < L ? pos : L - 1));
 }
 
-// bwt_smem1, one work item per thread.  Pass 1 (has_pivot 0): from x = 0,
-// pivot after pivot to the read's end.  Pass 2: the first position at or
-// after pivot[w] that seeds, one walk.  out: count[n], ovf[n], loads[n],
-// steps[n], then n x ME slots of (m, e, k, s).
-__global__ void __launch_bounds__(kThreads)
+// C[b] and the single-base interval's size C[b + 1] - C[b], by selects
+__device__ __forceinline__ int c_at(const Fmd& f, int b) {
+    return sel4(f.C[0], f.C[1], f.C[2], f.C[3], b);
+}
+__device__ __forceinline__ int c_size(const Fmd& f, int b) {
+    return sel4(f.C[1] - f.C[0], f.C[2] - f.C[1], f.C[3] - f.C[2], f.C[4] - f.C[3], b);
+}
+
+// A group's shared slice: its list of kCpMax (k, s, e) int4 slots and, for
+// reads up to kStageMax bytes, the read staged at its 16-byte phase
+__host__ __device__ __forceinline__ int slice_bytes(int L) {
+    const int stage = (L + 30) / 16 * 16;
+    return kCpMax * 16 + (stage <= kStageMax ? stage : 0);
+}
+
+enum Phase { kIdle, kScan, kFwd, kBwd };
+
+// bwt_smem1, a work item a lane group, in rounds (the design above).  Pass
+// 1 (has_pivot 0): from x = 0, pivot after pivot to the read's end.  Pass
+// 2: the first position at or after pivot[w] that seeds, one walk.  out
+// (zeroed by the caller): count[n], ovf[n], loads[n], steps[n], then n x ME
+// slots of (m, e, k, s); `work` the item counter, 0 at launch; `rounds`,
+// where not null, the rounds each item took.
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 fmi_smem1_kernel(Fmd f, const uint8_t* __restrict__ query, int L,
                  const int* __restrict__ qlen, const int* __restrict__ qrow,
-                 const int* __restrict__ pivot, const int* __restrict__ min_intv, int64_t n,
-                 int has_pivot, int min_seed_len, int CP, int ME, int* __restrict__ out) {
-    const int64_t w = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-    if (w >= n) return;
-    const int row = qrow ? qrow[w] : (int)w;
-    const uint8_t* q = query + (int64_t)row * L;
-    const int ql = qlen[row];
-    const int mi = min_intv ? min_intv[w] : 1;
-    int* slots = out + 4 * n + w * (int64_t)ME * 4;
-    int count = 0, ovf = 0, loads = 0, steps = 0;
-    // interval lists (k, s, end): the FWD collection, then each backward
-    // column's survivors, ping-ponged between the two halves
-    int lk[2][kCpMax], ls[2][kCpMax], le[2][kCpMax];
-    int x = has_pivot ? pivot[w] : 0;
-    if (ql < 1) x = ql;
-    while (x < ql) {
-        const int nb = x >= 0 ? base_at(q, x, L) : 4;
-        if (nb >= 4 || f.C[nb + 1] - f.C[nb] < mi) {   // the seed is dead
-            ++x;
-            continue;
+                 const int* __restrict__ pivot, const int* __restrict__ min_intv, int n,
+                 int has_pivot, int min_seed_len, int CP, int ME, int* __restrict__ out,
+                 int* __restrict__ rounds, unsigned* __restrict__ work) {
+    extern __shared__ int4 sh[];
+    const int lane = threadIdx.x & 31, gl = lane % kGroup, g0 = lane - gl;
+    const unsigned below = (1u << lane) - 1u;
+    const unsigned gmask = ((1u << kGroup) - 1u) << g0;
+    const int slice = slice_bytes(L);
+    char* mine = reinterpret_cast<char*>(sh) + (threadIdx.x / kGroup) * slice;
+    int4* lst = reinterpret_cast<int4*>(mine);
+    uint8_t* stage = reinterpret_cast<uint8_t*>(mine + kCpMax * 16);
+    const bool staged = slice > kCpMax * 16;
+    int4* slots = reinterpret_cast<int4*>(out + 4 * (int64_t)n);
+    // the group's state, the same in each of its lanes
+    int phase = kIdle, w = 0, ql = 0, mi = 1, x = 0, i = 0, j = 0, cnt = 0, ex = 0;
+    int base = 0, prev_n = 0, curr_n = 0, ptr = 0, last_s = 0, wk = 0, wl = 0, ws = 0;
+    int count = 0, loads = 0, steps = 0, nround = 0, ovf = 0;
+    bool need = true;
+    const uint8_t* rd = stage;      // the item's bases, staged or in global memory
+    for (;;) {
+        // groups without an item take the next one and stage its read
+        if (__any_sync(kFull, need)) {
+            unsigned got = 0;
+            if (need && gl == 0) got = atomicAdd(work, 1u);
+            got = __shfl_sync(kFull, got, g0);
+            if (need && got < (unsigned)n) {
+                w = (int)got;
+                const int row = qrow ? qrow[w] : w;
+                ql = qlen[row];
+                mi = min_intv ? min_intv[w] : 1;
+                x = ql < 1 ? ql : (has_pivot ? pivot[w] : 0);
+                count = loads = steps = nround = ovf = 0;
+                phase = kScan;
+                const uint8_t* src = query + (int64_t)row * L;
+                rd = src;
+                if (staged && ql > 0) {
+                    const int ph = (int)(reinterpret_cast<uintptr_t>(src) & 15);
+                    const int4* line = reinterpret_cast<const int4*>(src - ph);
+                    for (int c = gl; c * 16 < ph + ql; c += kGroup) {
+                        const int lo = c * 16 - ph;     // the chunk's first byte in the read
+                        if (lo >= 0 && lo + 16 <= ql) {
+                            reinterpret_cast<int4*>(stage)[c] = __ldg(line + c);
+                        } else {
+                            for (int b = 0; b < 16; ++b)
+                                if (lo + b >= 0 && lo + b < ql)
+                                    stage[c * 16 + b] = __ldg(src + lo + b);
+                        }
+                    }
+                    rd = stage + ph;
+                }
+            }
+            need = false;           // a group that found no item stays idle
+            __syncwarp();
         }
-        // forward collect: the longest end per distinct interval size
-        int wk = f.C[nb], wl = f.C[3 - nb], ws = f.C[nb + 1] - f.C[nb];
-        int cnt = 0, i = x + 1;
-        for (;;) {
-            const int c = i < ql ? base_at(q, i, L) : 4;
-            int kf = 0, lf = 0, sf = 0;
-            if (c < 4) {
-                loads += ext(f, wl, wk, ws > 1 ? ws : 1, 3 - c, lf, kf, sf);
+        if (!__any_sync(kFull, phase != kIdle)) break;
+        bool fin = false;
+        if (phase != kIdle) ++nround;
+        if (phase == kScan) {       // the next position that seeds, no load
+            int b = 4;
+            while (x < ql) {
+                b = x >= 0 ? rd[x] : 4;
+                if (b < 4 && c_size(f, b) >= mi) break;
+                ++x;
+            }
+            if (x < ql) {
+                wk = c_at(f, b);
+                wl = c_at(f, 3 - b);
+                ws = c_size(f, b);
+                cnt = 0;
+                i = x + 1;
+                phase = kFwd;
+            } else {
+                fin = true;
+            }
+        }
+        // the round's extension: the forward step on every lane alike, or
+        // interval ptr + gl of the column
+        int cf = 4, cb = 4, ea = 0, es = 1, ec = 0;
+        int4 ent = make_int4(0, 0, 0, 0);
+        bool on = false;
+        if (phase == kFwd) {
+            cf = i < ql ? rd[i] : 4;
+            on = cf < 4;
+            ea = wl;
+            es = ws > 1 ? ws : 1;
+            ec = 3 - cf;
+        } else if (phase == kBwd) {
+            cb = (j >= 0 && j < ql) ? rd[j] : 4;
+            const int p = ptr + gl;
+            if (p < prev_n) ent = lst[base + p];
+            on = p < prev_n && cb < 4;
+            ea = ent.x;
+            es = ent.y > 1 ? ent.y : 1;
+            ec = cb;
+        }
+        int an = 0, on_ = 0, sn = 0, nl = 0;
+        if (on) nl = ext(f, ea, phase == kFwd ? wk : 0, es, ec, an, on_, sn);
+        // the column's survivors, compacted in list order, and its emit
+        unsigned g_ext = 0, g_two = 0, g_surv = 0, g_app = 0;
+        bool emit = false;
+        int s_end = 0;
+        if (__any_sync(kFull, phase == kBwd)) {
+            const bool surv = phase == kBwd && on && sn >= mi;
+            const unsigned m_surv = __ballot_sync(kFull, surv);
+            const unsigned prev = m_surv & gmask & below;
+            g_surv = m_surv & gmask;
+            const int s_prev = __shfl_sync(kFull, sn, prev ? 31 - __clz(prev) : lane);
+            s_end = __shfl_sync(kFull, sn, g_surv ? 31 - __clz(g_surv) : lane);
+            const bool app = surv && (prev ? sn != s_prev : (curr_n == 0 || sn != last_s));
+            g_app = __ballot_sync(kFull, app) & gmask;
+            g_ext = __ballot_sync(kFull, on) & gmask;
+            g_two = __ballot_sync(kFull, on && nl == 2) & gmask;
+            const bool em = phase == kBwd && gl == 0 && ptr == 0 && !surv &&
+                            ent.z - (j + 1) >= min_seed_len;
+            emit = (__ballot_sync(kFull, em) >> g0) & 1u;
+            // every lane of the chunk read its slot before the ballots
+            if (app) lst[curr_n + __popc(g_app & below)] = make_int4(an, sn, ent.z, 0);
+        }
+        if (phase == kFwd) {
+            if (on) {
+                loads += nl;
                 ++steps;
             }
-            const bool stop = c >= 4 || sf < mi;
-            if (stop || sf != ws) {
-                if (cnt >= CP) { ovf = 1; goto done; }
-                lk[0][cnt] = wk; ls[0][cnt] = ws; le[0][cnt] = i;
-                ++cnt;
+            const bool stop = cf >= 4 || sn < mi;
+            if (stop || sn != ws) {
+                if (cnt >= CP) {
+                    ovf = 1;
+                    fin = true;
+                } else {
+                    if (gl == 0) lst[CP - 1 - cnt] = make_int4(wk, ws, i, 0);
+                    ++cnt;
+                }
             }
-            if (stop) break;
-            wk = kf; wl = lf; ws = sf;
-            ++i;
-        }
-        {
-            // backward: the first column reads the collection longest first
-            const int ex = i;
-            int par = 0, prev_n = cnt, j = x - 1;
-            bool first = true;
-            for (;;) {
-                const int c = (j >= 0 && j < ql) ? base_at(q, j, L) : 4;
-                int curr_n = 0, last_s = 0;
-                bool emitted = false;
-                for (int p = 0; p < prev_n; ++p) {
-                    const int idx = first ? prev_n - 1 - p : p;
-                    const int pk = lk[par][idx], ps = ls[par][idx], pe = le[par][idx];
-                    int kb = 0, ob = 0, sb = 0;
-                    if (c < 4) {
-                        loads += ext(f, pk, 0, ps > 1 ? ps : 1, c, kb, ob, sb);
-                        ++steps;
-                    }
-                    if (c >= 4 || sb < mi) {
-                        // only the first (longest) interval dying here is an SMEM
-                        if (curr_n == 0 && !emitted) {
-                            if (pe - (j + 1) >= min_seed_len) {
-                                if (count >= ME) { ovf = 1; goto done; }
-                                int* sl = slots + count * 4;
-                                sl[0] = j + 1; sl[1] = pe; sl[2] = pk; sl[3] = ps;
-                                ++count;
-                            }
-                            emitted = true;
+            if (!fin) {
+                if (stop) {
+                    phase = kBwd;
+                    ex = i;
+                    base = CP - cnt;
+                    prev_n = cnt;
+                    j = x - 1;
+                    ptr = curr_n = last_s = 0;
+                } else {
+                    wk = on_;
+                    wl = an;
+                    ws = sn;
+                    ++i;
+                }
+            }
+        } else if (phase == kBwd) {
+            unsigned counted = g_ext;
+            if (emit) {
+                if (count >= ME) {      // the sequential walk stops at interval 0
+                    ovf = 1;
+                    counted &= 1u << g0;
+                    fin = true;
+                } else {
+                    if (gl == 0)
+                        slots[(int64_t)w * ME + count] = make_int4(j + 1, ent.z, ent.x, ent.y);
+                    ++count;
+                }
+            }
+            steps += __popc(counted);
+            loads += __popc(counted) + __popc(g_two & counted);
+            if (!fin) {
+                curr_n += __popc(g_app);
+                if (g_surv) last_s = s_end;
+                ptr += kGroup;
+                if (cb >= 4 || ptr >= prev_n) {     // the column's end
+                    if (curr_n == 0) {
+                        if (has_pivot) {
+                            fin = true;
+                        } else {
+                            x = ex > x + 1 ? ex : x + 1;
+                            phase = kScan;
                         }
-                    } else if (curr_n == 0 || sb != last_s) {
-                        lk[par ^ 1][curr_n] = kb; ls[par ^ 1][curr_n] = sb;
-                        le[par ^ 1][curr_n] = pe;
-                        ++curr_n;
-                        last_s = sb;
+                    } else {
+                        base = 0;
+                        prev_n = curr_n;
+                        curr_n = ptr = 0;
+                        --j;
                     }
                 }
-                if (curr_n == 0) break;
-                par ^= 1;
-                prev_n = curr_n;
-                first = false;
-                --j;
             }
-            if (has_pivot) break;
-            x = ex > x + 1 ? ex : x + 1;
         }
+        if (fin) {
+            if (gl == 0) {
+                out[w] = count;
+                out[n + w] = ovf;
+                out[2 * (int64_t)n + w] = loads;
+                out[3 * (int64_t)n + w] = steps;
+                if (rounds) rounds[w] = nround;
+            }
+            phase = kIdle;
+            need = true;
+        }
+        __syncwarp();
     }
-done:
-    out[w] = count;
-    out[n + w] = ovf;
-    out[2 * n + w] = loads;
-    out[3 * n + w] = steps;
 }
 
 // bwt_seed_strategy1, one read per thread.  out: count[n], loads[n],
@@ -322,19 +494,62 @@ Fmd make_fmd(const void* table, int c0, int c1, int c2, int c3, int c4, int sent
 
 unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
+// The SM count and the smem1 kernel's resident blocks an SM at `shared`
+// bytes on the current device, asked once per (device, shared) and kept.
+cudaError_t resident(size_t shared, int* sms, int* per_sm) {
+    struct Seen {
+        int dev;
+        size_t shared;
+        int sms, per_sm;
+    };
+    static std::mutex mu;
+    static std::vector<Seen> seen;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const std::lock_guard<std::mutex> lock(mu);
+    for (const Seen& o : seen)
+        if (o.dev == dev && o.shared == shared) {
+            *sms = o.sms, *per_sm = o.per_sm;
+            return cudaSuccess;
+        }
+    Seen o{dev, shared, 0, 0};
+    err = cudaDeviceGetAttribute(&o.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o.per_sm, fmi_smem1_kernel,
+                                                            kWarps * 32, shared);
+    if (err != cudaSuccess) return err;
+    seen.push_back(o);
+    *sms = o.sms, *per_sm = o.per_sm;
+    return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
+// out: (4 + 4 ME) n int32 zeroed by the caller, 16-byte aligned, and one
+// more for the work counter; rounds: n int32 or null.
 int gb_fmi_smem1(const void* table, const uint8_t* query, int L, const int* qlen,
                  const int* qrow, const int* pivot, const int* min_intv, int64_t n,
                  int has_pivot, int min_seed_len, int CP, int ME, int c0, int c1, int c2,
-                 int c3, int c4, int sent, int* out, void* stream) {
-    if (CP < 1 || CP > kCpMax || ME < 1 || L < 1 || (has_pivot && !pivot))
+                 int c3, int c4, int sent, int* out, int* rounds, void* stream) {
+    if (CP < 1 || CP > kCpMax || ME < 1 || L < 1 || n < 0 || n > (1 << 30) ||
+        (has_pivot && !pivot) || reinterpret_cast<uintptr_t>(out) % 16)
         return (int)cudaErrorInvalidValue;
-    fmi_smem1_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        make_fmd(table, c0, c1, c2, c3, c4, sent), query, L, qlen, qrow, pivot, min_intv, n,
-        has_pivot, min_seed_len, CP, ME, out);
+    if (n == 0) return 0;
+    const auto s = (cudaStream_t)stream;
+    auto* work = reinterpret_cast<unsigned*>(out + (4 + 4 * (int64_t)ME) * n);
+    const size_t shared = (size_t)kWarps * kGroups * slice_bytes(L);
+    int sms = 0, per_sm = 0;
+    cudaError_t err = cudaMemsetAsync(work, 0, sizeof(unsigned), s);
+    if (err == cudaSuccess) err = resident(shared, &sms, &per_sm);
+    if (err != cudaSuccess) return (int)err;
+    const int64_t wanted = (n + kWarps * kGroups - 1) / (kWarps * kGroups);
+    const int64_t fit = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+    fmi_smem1_kernel<<<(unsigned)(wanted < fit ? wanted : fit), kWarps * 32, shared, s>>>(
+        make_fmd(table, c0, c1, c2, c3, c4, sent), query, L, qlen, qrow, pivot, min_intv,
+        (int)n, has_pivot, min_seed_len, CP, ME, out, rounds, work);
     return (int)cudaGetLastError();
 }
 

@@ -650,8 +650,9 @@ def fmi_smem1(tab: FmdTables, query, qlen, qrow=None, pivot=None, min_intv=None,
     if dev.type != "cuda":
         raise ValueError(f"fmi_smem1 runs on cuda or cpu tensors, not {dev}")
     CP, ME = walk_caps(L)
-    buf = torch.zeros(N * (SMEM1_HEAD + 4 * ME), dtype=_I32, device=dev)
-    res = _walk_out(buf, N, ME, SMEM1_HEAD)
+    # one int32 past the outputs: the kernel's work counter
+    full = torch.zeros(N * (SMEM1_HEAD + 4 * ME) + 1, dtype=_I32, device=dev)
+    res = _walk_out(full[:-1], N, ME, SMEM1_HEAD)
     if N == 0:
         return res
     from genomicsbench_tpu_torch import _kernels
@@ -663,8 +664,8 @@ def fmi_smem1(tab: FmdTables, query, qlen, qrow=None, pivot=None, min_intv=None,
     with torch.cuda.device(dev):
         rc = lib.gb_fmi_smem1(tab.table.data_ptr(), query.data_ptr(), L, qlen.data_ptr(),
                               ptr(qrow), ptr(pivot), ptr(min_intv), N, int(pivot is not None),
-                              min_seed_len, CP, ME, *_launch_consts(tab), buf.data_ptr(),
-                              _stream(dev))
+                              min_seed_len, CP, ME, *_launch_consts(tab), full.data_ptr(),
+                              None, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"fmi smem1 kernel launch failed with cudaError {rc}")
     fmi_smem1.launches += 1

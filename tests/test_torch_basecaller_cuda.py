@@ -194,6 +194,26 @@ def test_head_within_one_ulp(card, T_len):
         ops.decoder_head(x, w, torch.float32)
 
 
+
+@pytest.mark.parametrize("N", [1, 255, 257, 100_003])
+@pytest.mark.parametrize("C,L", [(6, 1), (6, 5), (48, 3), (48, 5), (48, 8), (130, 1),
+                                 (130, 6), (130, 8)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_head_tiles_widths_and_offsets(card, N, C, L, offset):
+    """Frames past a tile's edge, widths whose rows are staged flat (6,
+    130) or padded (48), label counts of each weight-row width (1, 3, 5-8),
+    and x a view that starts an odd number of frames into its buffer (at C
+    6 and 130 off the 16-byte grid)."""
+    g = torch.Generator(device=card).manual_seed(N + 7 * C + L + offset)
+    buf = (torch.randn((N + 1) * C, device=card, generator=g) * 2).to(_BF16)
+    x = buf[offset * C:(offset + N) * C].view(1, N, C)
+    w = (torch.randn(C, L, device=card, generator=g) * 0.5).to(_BF16)
+    got = ops.decoder_head(x, w)
+    want = ops.decoder_head_reference(x, w)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (1, N, L)
+    assert int(ulps(got, want).max()) <= 1, (N, C, L, offset)
+
 def _posteriors_close(got, want):
     got, want = got.float().exp(), want.float().exp()
     err = float((got - want).abs().max())

@@ -334,6 +334,74 @@ def test_plain_walks_count_their_rank_lines(indexes):
     assert int(w.steps.sum()) > 0
 
 
+
+# ----------------------------------------------- the kernel's schedule (model)
+CAPS = cases.cap_cases()
+WALK_FIELDS = ("count", "ovf", "loads", "steps", "slots")
+
+
+def _model_vs_plain(index, q, ql, items=(), msl=19, group=cases.SMEM1_GROUP):
+    """`lane_group_smem1` (the model of gb_fmi_smem1's lane groups and
+    rounds) against the plain version, every field bit for bit; returns
+    the model's result."""
+    items = tuple(np.asarray(a, np.int32) for a in items)
+    want = fmi.fmi_smem1_reference(index.device("cpu"), _t(q), _t(ql), *map(_t, items),
+                                   min_seed_len=msl)
+    got = cases.lane_group_smem1(index, q, ql, *items, min_seed_len=msl, group=group)
+    for f in WALK_FIELDS:
+        np.testing.assert_array_equal(got[f], getattr(want, f).numpy(), err_msg=f)
+    return got
+
+
+@pytest.mark.parametrize("group", [cases.SMEM1_GROUP, 8])
+@pytest.mark.parametrize("label", sorted(EDGES))
+def test_lane_group_model_on_edges(indexes, label, group):
+    """Every fmi edge case (pass 1, or pass 2 on the pivots' items) through
+    the model of the kernel's schedule, at its group size and at 8."""
+    c = EDGES[label]
+    got = _model_vs_plain(indexes[label][1], c["query"], c["qlen"], c.get("items", ()),
+                          c["min_seed_len"], group)
+    assert (got["rounds"] >= 1).all()
+
+
+@pytest.mark.parametrize("group", [cases.SMEM1_GROUP, 8])
+@pytest.mark.parametrize("label", sorted(CAPS))
+def test_lane_group_model_at_the_caps(label, group):
+    """Walks that overflow CP in the forward collection, fill columns of CP
+    intervals and overflow ME at a column's first interval while the
+    group's other lanes extend the rest: the model stops and counts as
+    the sequential walk does."""
+    c = CAPS[label]
+    index = fmi.build_fmd_index(c["ref"])
+    got = _model_vs_plain(index, c["query"], c["qlen"], c.get("items", ()), c["min_seed_len"],
+                          group)
+    _, ME = fmi.walk_caps(c["query"].shape[1])
+    if label == "me_cap":
+        assert got["ovf"].all() and (got["count"] == ME).all()
+    if label == "cp_cap_items":
+        assert got["ovf"].any() and (got["count"][got["ovf"] == 1] == 0).all()
+
+
+@pytest.mark.parametrize("label", ["small", "200k", "repetitive", "poly_a"])
+def test_lane_group_model_on_pass2_items(indexes, label):
+    """Pass 1 and the pass-2 items it makes (pass2_items of the plain
+    pipeline's SMEMs) through the model, on four indexes."""
+    if label in ("small", "200k"):       # the references of the `indexes` fixture
+        n, seed, length = (800, 7, 90) if label == "small" else (200_000, 3, 151)
+        q, ql = cases.bench_fmi_reads(cases.bench_fmi_reference(n, seed), 16, seed=5,
+                                      length=length)
+        q[3, 40] = 4
+    else:
+        q, ql = EDGES[label]["query"], EDGES[label]["qlen"]
+    index = indexes[label][1]
+    _model_vs_plain(index, q, ql)
+    pipe = fmi.FmiPipeline(index, device="cpu")
+    items = pipe.pass2_items(pipe.pass1(q, ql))
+    if label != "poly_a":
+        assert len(items[0]) > 0
+    _model_vs_plain(index, q, ql, items)
+
+
 # ------------------------------------------------------------------ fmi_gold
 def test_64_reads_match_fmi_gold(indexes, tmp_path):
     _, t = indexes["200k"]

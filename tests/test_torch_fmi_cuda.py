@@ -19,6 +19,7 @@ import torch_fmi_cases as cases
 
 pytestmark = pytest.mark.cuda
 EDGES = cases.edge_cases()
+CAPS = cases.cap_cases()
 
 
 @pytest.fixture
@@ -62,6 +63,63 @@ def test_kernels_match_plain_on_edge_cases(card, label):
         assert torch.equal(fmi.fmi_extend(tab, q, ql, qrow, start, mi, me),
                            fmi.fmi_extend_reference(tab, q, ql, qrow, start, mi, me)), floor
 
+
+
+def _smem1_with_rounds(tab, q, ql, items, msl):
+    """gb_fmi_smem1 through its C entry with the rounds each item took;
+    returns (the outputs, the rounds)."""
+    from genomicsbench_tpu_torch import _kernels
+
+    B, L = q.shape
+    N = items[0].numel() if items else B
+    CP, ME = fmi.walk_caps(L)
+    full = torch.zeros(N * (fmi.SMEM1_HEAD + 4 * ME) + 1, dtype=torch.int32, device=q.device)
+    rounds = torch.zeros(N, dtype=torch.int32, device=q.device)
+    qrow, pivot, mi = (list(items) + [None] * 3)[:3]
+    ptr = [t.data_ptr() if t is not None else None for t in (qrow, pivot, mi)]
+    rc = _kernels.load().gb_fmi_smem1(
+        tab.table.data_ptr(), q.data_ptr(), L, ql.data_ptr(), *ptr, N, int(bool(items)), msl, CP,
+        ME, *fmi._launch_consts(tab), full.data_ptr(), rounds.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    return full[:-1], rounds
+
+
+@pytest.mark.parametrize("label", sorted(CAPS) + sorted(EDGES))
+def test_smem1_follows_the_model(card, label):
+    """Walks that overflow CP and ME inside a column and columns of CP
+    intervals, and every edge case: gb_fmi_smem1 == the plain version bit
+    for bit, and each item takes the rounds of `lane_group_smem1`, the
+    model of the kernel's schedule."""
+    c = CAPS.get(label) or EDGES[label]
+    index = fmi.build_fmd_index(c["ref"])
+    tab = index.device(card)
+    q, ql = _dev(c["query"], card), _dev(c["qlen"], card)
+    items = [_dev(a, card) for a in c.get("items", ())]
+    msl = c["min_seed_len"]
+    got, rounds = _smem1_with_rounds(tab, q, ql, items, msl)
+    want = fmi.fmi_smem1_reference(tab, q, ql, *items, min_seed_len=msl)
+    assert torch.equal(got, want.buf)
+    assert torch.equal(fmi.fmi_smem1(tab, q, ql, *items, min_seed_len=msl).buf, want.buf)
+    model = cases.lane_group_smem1(index, c["query"], c["qlen"], *c.get("items", ()),
+                                   min_seed_len=msl)
+    np.testing.assert_array_equal(rounds.cpu().numpy(), model["rounds"])
+    if label == "me_cap":
+        assert bool(want.ovf.all())
+
+
+@pytest.mark.parametrize("width", [1001, 1500])
+def test_smem1_wide_reads_from_global_memory(card, width):
+    """A 1,000-base read padded to widths whose rows pass the kernel's
+    staging (read from global memory) or sit one byte past 1,000."""
+    c = EDGES["long_read"]
+    q = np.zeros((len(c["qlen"]), width), np.uint8)
+    q[:, :c["query"].shape[1]] = c["query"]
+    tab = fmi.build_fmd_index(c["ref"]).device(card)
+    qd, qld = _dev(q, card), _dev(c["qlen"], card)
+    assert torch.equal(fmi.fmi_smem1(tab, qd, qld, min_seed_len=19).buf,
+                       fmi.fmi_smem1_reference(tab, qd, qld, min_seed_len=19).buf)
 
 @pytest.mark.parametrize("label", ["ambiguous", "short", "poly_a", "repetitive"])
 def test_pipeline_on_the_card_matches_bruteforce(card, label):

@@ -17,11 +17,15 @@ arrays:
   overflow the walk's caps, a highly repetitive reference, seeds under the
   pass-3 floor, a 1,000-base read, and pass-2 work items with pivots at 0
   and qlen - 1;
+* `cap_cases`: walks that meet the smem1 caps (CP, ME) inside a backward
+  column, and columns of CP intervals;
 * `brute_smems` / `brute_pass2`: SMEMs by plain string search over
   T = ref . revcomp(ref) (tests/test_fmi.py:13-56 and :119-143, copied);
 * `write_gold_index` / `write_gold_reads` / `build_fmi_gold` /
   `run_fmi_gold`: the inputs of tools/ref_drivers/fmi_gold.cpp (the layout
-  of tools/fmi_gold_check.py:21-35), its build with g++ and its tuples.
+  of tools/fmi_gold_check.py:21-35), its build with g++ and its tuples;
+* `lane_group_smem1`: a model of `gb_fmi_smem1`'s schedule (lane groups,
+  rounds, ballot compaction, the caps), held against the plain version.
 """
 
 from __future__ import annotations
@@ -210,6 +214,54 @@ def edge_cases():
     return cases
 
 
+
+def cap_cases():
+    """Walks that meet the smem1 caps inside a backward column or fill its
+    list: label -> dict(ref, query, qlen, min_seed_len) and, for the
+    pass-2 items, items (qrow, pivot, min_intv) as int32.
+
+    * "cp_cap": 30 poly-A runs of 15-35 bases, each flanked by G, in a
+      6,000-base reference; 100-base reads from 12 bases before each run,
+      with a substitution before it and one after it (pass 1: columns of up
+      to 13 intervals, several chunks of a lane group);
+    * "cp_cap_items": pass-2 items on those reads with pivots at each run's
+      start, middle and end and at 0, floors 1 and 2: a forward collection
+      past CP = 24 stops its item, and columns of exactly 24 intervals;
+    * "me_cap": 8 random reads of 90-150 bases over a random 24-base
+      reference, min_seed_len 1: every read's walk emits past ME = 48, at
+      the first interval of a column whose other intervals a lane group
+      extends in the same round (the sequential walk stops before them)."""
+    out = {}
+    r = np.random.default_rng(61)
+    ref = r.integers(0, 4, 6000).astype(np.uint8)
+    starts = np.sort(r.choice(np.arange(100, 5900, 180), 30, replace=False))
+    runs = r.integers(15, 36, 30)
+    reads, qrow, pivot, mintv = [], [], [], []
+    for s, k in zip(starts.tolist(), runs.tolist()):
+        ref[s:s + k] = 0
+        ref[s - 1] = ref[s + k] = 2
+    for s, k in zip(starts.tolist(), runs.tolist()):
+        rd = ref[s - 12:s + 88].copy()
+        rd[10] = (rd[10] + 1) % 4
+        rd[min(k + 16, 99)] = (rd[min(k + 16, 99)] + 2) % 4
+        reads.append(rd)
+        for p in (12, 12 + k // 2, 11 + k, 0):
+            for f in (1, 2):
+                qrow.append(len(reads) - 1)
+                pivot.append(p)
+                mintv.append(f)
+    q, ql = pad_batch(reads)
+    out["cp_cap"] = dict(ref=ref, query=q, qlen=ql, min_seed_len=MIN_SEED_LEN)
+    out["cp_cap_items"] = dict(ref=ref, query=q, qlen=ql, min_seed_len=MIN_SEED_LEN,
+                               items=tuple(np.asarray(v, np.int32)
+                                           for v in (qrow, pivot, mintv)))
+    r = np.random.default_rng(40)
+    ref = r.integers(0, 4, 24).astype(np.uint8)
+    reads = [r.integers(0, 4, n).astype(np.uint8) for n in r.integers(90, 151, 8).tolist()]
+    q, ql = pad_batch(reads, 150)
+    out["me_cap"] = dict(ref=ref, query=q, qlen=ql, min_seed_len=1)
+    return out
+
 # --------------------------------------------------------------- brute force
 def text_bytes(ref) -> bytes:
     """T = ref . revcomp(ref) as bytes (the index's text)."""
@@ -310,3 +362,173 @@ def pipeline_tuples(p1, p2, p3):
         out += zip(p.rid.tolist(), [pi] * p.count, p.m.tolist(), (p.n + 1).tolist(),
                    p.k.tolist(), p.s.tolist())
     return sorted(out)
+
+
+# ------------------------------------------------------- the smem1 schedule
+# gb_fmi_smem1's lanes a work item (csrc/fmi.cu kGroup)
+SMEM1_GROUP = 4
+
+
+def _line_ranks(table, sent, row):
+    """Counts of each base in BWT[0:row] from the packed line table (a list
+    of 8-int rows), as csrc/fmi.cu `rank4` computes them."""
+    blk, off = row >> 6, row & 63
+    c0, c1, c2, c3, a0, a1, b0, b1 = table[blk]
+    a0, a1, b0, b1 = (v & 0xFFFFFFFF for v in (a0, a1, b0, b1))
+    m_lo = 0xFFFFFFFF if off >= 32 else (1 << off) - 1
+    m_hi = (1 << (off - 32)) - 1 if off > 32 else 0
+    n0, n1 = ~a0 & 0xFFFFFFFF, ~a1 & 0xFFFFFFFF
+    o0, o1 = ~b0 & 0xFFFFFFFF, ~b1 & 0xFFFFFFFF
+    r = [c0 + (n0 & o0 & m_lo).bit_count() + (n1 & o1 & m_hi).bit_count(),
+         c1 + (a0 & o0 & m_lo).bit_count() + (a1 & o1 & m_hi).bit_count(),
+         c2 + (n0 & b0 & m_lo).bit_count() + (n1 & b1 & m_hi).bit_count(),
+         c3 + (a0 & b0 & m_lo).bit_count() + (a1 & b1 & m_hi).bit_count()]
+    r[0] -= int((sent >> 6) == blk and sent < row)
+    return r
+
+
+def _line_ext(table, C, sent, a, other, s, c):
+    """csrc/fmi.cu `ext`: (a', other', s', rank lines loaded)."""
+    b = a + s
+    lo, hi = _line_ranks(table, sent, a), _line_ranks(table, sent, b)
+    s4 = [h - l for h, l in zip(hi, lo)]
+    suf = (s4[1] + s4[2] + s4[3], s4[2] + s4[3], s4[3], 0)
+    other_n = other + int(a <= sent < b) + suf[c]
+    return C[c] + lo[c], other_n, s4[c], 1 if (a >> 6) == (b >> 6) else 2
+
+
+def lane_group_smem1(index, query, qlen, qrow=None, pivot=None, min_intv=None, *,
+                     min_seed_len, group=SMEM1_GROUP):
+    """A model of `gb_fmi_smem1`'s schedule, one work item at a time on its
+    group of `group` lanes, in the kernel's rounds: the read staged; a round
+    first seeds where a pivot ended (a scan over the staged bases that
+    costs no load), then makes at most one extension a lane: a forward
+    step on every lane of the group alike, or one interval of a backward
+    column per lane, the column's list read longest first in its first
+    column, `group` intervals a round; then the state update, where the
+    column's survivors are compacted by ballots (the size test against
+    the previous survivor, read by a shuffle, or the last one of the
+    chunk before), the one emit a column can make (its first interval
+    dying) and the caps stop the item as the sequential walk stops it,
+    counting only the extensions that walk made.  One list of CP slots a
+    group: the forward collection fills it from the top down, so that
+    every column reads it upwards from `base`, longest first, and its
+    survivors are compacted in place at 0 upwards (a chunk reads before it
+    writes, and no survivor lands above the slot it was read from).
+
+    `index` is an FmdIndex (host arrays).  Returns the plain version's
+    (count, ovf, loads, steps, slots) as numpy arrays and the rounds each
+    item took."""
+    table = index.packed().tolist()
+    C = [int(c) for c in index.C]
+    sent = int(index.sentinel_row)
+    query = np.asarray(query, np.uint8)
+    qlen = np.asarray(qlen, np.int64)
+    B, L = query.shape
+    has_pivot = pivot is not None
+    N = len(qrow) if qrow is not None else B
+    CP, ME = min(L + 1, 24), min(L + 1, 48)
+    count, ovf, loads, steps, rounds = (np.zeros(N, np.int64) for _ in range(5))
+    slots = np.zeros((N, ME, 4), np.int64)
+    below = [(1 << gl) - 1 for gl in range(group)]
+    for w in range(N):
+        row = int(qrow[w]) if qrow is not None else w
+        ql = int(qlen[row])
+        rd = query[row, :max(ql, 0)].tolist()          # the staged bases
+        mi = int(min_intv[w]) if min_intv is not None else 1
+        x = int(pivot[w]) if has_pivot else 0
+        if ql < 1:
+            x = ql
+        lst = [(0, 0, 0)] * CP                         # (k, s, e)
+        phase = "scan"
+        ovf_w = loads_w = steps_w = rounds_w = 0
+        while True:
+            rounds_w += 1
+            if phase == "scan":
+                while x < ql:
+                    nb = rd[x] if x >= 0 else 4
+                    if nb < 4 and C[nb + 1] - C[nb] >= mi:
+                        break
+                    x += 1
+                if x >= ql:
+                    phase = "done"
+                else:
+                    phase = "fwd"
+                    wk, wl, ws = C[nb], C[3 - nb], C[nb + 1] - C[nb]
+                    cnt, i = 0, x + 1
+            if phase == "fwd":
+                cf = rd[i] if i < ql else 4
+                if cf < 4:
+                    lf, kf, sf, nl = _line_ext(table, C, sent, wl, wk, max(ws, 1), 3 - cf)
+                    loads_w += nl
+                    steps_w += 1
+                stop = cf >= 4 or sf < mi
+                if stop or sf != ws:
+                    if cnt >= CP:
+                        ovf_w = 1
+                        phase = "done"
+                    else:
+                        lst[CP - 1 - cnt] = (wk, ws, i)
+                        cnt += 1
+                if phase != "done":
+                    if stop:
+                        phase, ex, base, prev_n, j = "bwd", i, CP - cnt, cnt, x - 1
+                        ptr, curr_n, last_s = 0, 0, 0
+                    else:
+                        wk, wl, ws, i = kf, lf, sf, i + 1
+            elif phase == "bwd":
+                cb = rd[j] if 0 <= j < ql else 4
+                ent, sb, kb = [None] * group, [0] * group, [0] * group
+                m_ext = m_two = m_surv = 0
+                for gl in range(group):          # every lane's request and extension
+                    p = ptr + gl
+                    if p < prev_n:
+                        ent[gl] = lst[base + p]
+                        if cb < 4:
+                            pk, ps, _ = ent[gl]
+                            kb[gl], _, sb[gl], nl = _line_ext(table, C, sent, pk, 0, max(ps, 1),
+                                                              cb)
+                            m_ext |= 1 << gl
+                            m_two |= (nl == 2) << gl
+                            m_surv |= (sb[gl] >= mi) << gl
+                m_app = 0
+                for gl in range(group):          # the size test by shuffle
+                    if m_surv >> gl & 1:
+                        prev = m_surv & below[gl]
+                        if prev:
+                            app = sb[gl] != sb[prev.bit_length() - 1]
+                        else:
+                            app = curr_n == 0 or sb[gl] != last_s
+                        m_app |= app << gl
+                pk0, ps0, pe0 = ent[0]
+                emit = ptr == 0 and not m_surv & 1 and pe0 - (j + 1) >= min_seed_len
+                counted = m_ext
+                if emit and count[w] >= ME:       # stops at interval 0 of the column
+                    ovf_w, counted, phase = 1, m_ext & 1, "done"
+                elif emit:
+                    slots[w, count[w]] = (j + 1, pe0, pk0, ps0)
+                    count[w] += 1
+                steps_w += counted.bit_count()
+                loads_w += counted.bit_count() + (m_two & counted).bit_count()
+                if phase != "done":
+                    for gl in range(group):      # the appenders, compacted by rank
+                        if m_app >> gl & 1:
+                            rank = (m_app & below[gl]).bit_count()
+                            lst[curr_n + rank] = (kb[gl], sb[gl], ent[gl][2])
+                    curr_n += m_app.bit_count()
+                    if m_surv:
+                        last_s = sb[m_surv.bit_length() - 1]
+                    ptr += group
+                    if cb >= 4 or ptr >= prev_n:      # the column's end
+                        if curr_n == 0:
+                            if has_pivot:
+                                phase = "done"
+                            else:
+                                x, phase = max(ex, x + 1), "scan"
+                        else:
+                            base, prev_n, curr_n, ptr = 0, curr_n, 0, 0
+                            j -= 1
+            if phase == "done":
+                break
+        ovf[w], loads[w], steps[w], rounds[w] = ovf_w, loads_w, steps_w, rounds_w
+    return dict(count=count, ovf=ovf, loads=loads, steps=steps, slots=slots, rounds=rounds)
