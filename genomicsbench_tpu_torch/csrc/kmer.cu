@@ -1,8 +1,9 @@
 // Flye kmer-cnt for Hopper: canonical k-mers, their run counts and
 // per-position frequencies, the window-minimizer walk and the minimizer
 // sites.  Five kernels: the canonical pass one thread per unit of 16
-// positions, the run count, the frequency scatter and the site build one
-// thread per work item, the walk one block per read.
+// positions, the run count a streaming read of 16-byte vectors, the
+// frequency scatter one block per tile of 2,048 sorted slots, the site
+// build one thread per position, the walk one block per read.
 //
 // The JAX package computes these in genomicsbench_tpu/ops/kmer.py:
 //   gb_kmer_canonical  replaces `_canonical_kmers` (:165) and, on the
@@ -78,7 +79,9 @@
 // bound (one code byte in and one 4-byte key out per position, the
 // canonical pass's few tens of integer instructions a position, a roll, the
 // butterfly and in mode 1 the packed byte's carry, near that line; 4 bytes of
-// key; 4 + 8 bytes of key and permutation in and 2 bytes out); the
+// key; 4 + 8 bytes of key and permutation in and 2 bytes out, though each
+// of the scatter's 2-byte stores to a random position moves a 32-byte
+// sector, a floor of 32 bytes a key beside the bound); the
 // minimizer walk moves one code byte in and 8 + 1 bytes of raw k-mer and
 // mask out per position and does a few tens of integer instructions per
 // position (the hash is two 64-bit products, the look-ahead a few 64-bit
@@ -261,85 +264,275 @@ canonical_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ 
   }
 }
 
-// Run starts among the valid sorted keys, and the valid keys: each thread
-// counts its keys, the block sums into shared memory, one thread adds the
-// block's sums to the two totals.
-__global__ void __launch_bounds__(kThreads)
-runs_kernel(const int32_t* __restrict__ s, int64_t n, unsigned long long* __restrict__ out) {
-  __shared__ unsigned long long block_sum[2];
-  if (threadIdx.x == 0) block_sum[0] = block_sum[1] = 0;
-  __syncthreads();
-  unsigned long long starts = 0, valid = 0;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int32_t v = s[i];
-    if (v != kSentinelKey) {
-      ++valid;
-      if (i == 0 || s[i - 1] != v) ++starts;
+// The run count: run starts among the valid sorted keys, and the valid
+// keys.  A streaming read at 16 bytes a lane: the keys from the first
+// 16-byte boundary of `s` on are int4 vectors (any 4-byte offset of `s`:
+// the `head` keys before the boundary and the 0-3 after the last whole
+// vector are counted one at a time by thread 0).  A warp takes chunks of
+// kRunsUnroll x 32 consecutive vectors, a grid-stride loop over them, all
+// kRunsUnroll loads of a lane issued before any is used; a vector's left
+// neighbour is the previous lane's last key (__shfl_up_sync), lane 0's the
+// previous step's lane 31's, and at a chunk's start the one key before it,
+// which lane 0 loads beside the vectors.  Vectors past the end load as
+// sentinels, which count nothing.  Counts stay 32-bit in registers, go
+// through __reduce_add_sync, and each block makes one 64-bit atomic per
+// total into `out`, which the caller zeroes.  The grid is kRunsWaves waves
+// of kRunsBlocksPerSm blocks an SM, each warp striding over the chunks.
+constexpr int kRunsUnroll = 4;
+constexpr int kRunsChunk = 32 * kRunsUnroll;        // vectors a warp takes at a time
+constexpr int kRunsBlocksPerSm = 8;
+constexpr int kRunsWaves = 4;
+
+__device__ __forceinline__ void count_key(int32_t v, int32_t prev, unsigned& starts,
+                                          unsigned& valid) {
+  const bool ok = v != kSentinelKey;
+  valid += ok;
+  starts += ok && v != prev;
+}
+
+__global__ void __launch_bounds__(kThreads, kRunsBlocksPerSm)
+runs_kernel(const int32_t* __restrict__ s, int64_t n, int head, int64_t nv,
+            unsigned long long* __restrict__ out) {
+  __shared__ unsigned warp_sum[2][kThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int4* body = reinterpret_cast<const int4*>(s + head);
+  const int64_t chunks = (nv + kRunsChunk - 1) / kRunsChunk;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
+  unsigned starts = 0, valid = 0;
+  for (int64_t c = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + warp; c < chunks;
+       c += warps) {
+    const int64_t v0 = c * kRunsChunk;
+    int4 x[kRunsUnroll];
+#pragma unroll
+    for (int u = 0; u < kRunsUnroll; ++u) {
+      const int64_t idx = v0 + u * 32 + lane;
+      x[u] = idx < nv ? __ldg(body + idx)
+                      : make_int4(kSentinelKey, kSentinelKey, kSentinelKey, kSentinelKey);
+    }
+    const int64_t p = head + 4 * v0 - 1;            // the key before the chunk
+    int32_t before = 0;
+    if (lane == 0) before = p >= 0 ? __ldg(s + p) : ~x[0].x;
+#pragma unroll
+    for (int u = 0; u < kRunsUnroll; ++u) {
+      int32_t prev = __shfl_up_sync(kFull, x[u].w, 1);
+      const int32_t last = __shfl_sync(kFull, x[u].w, 31);
+      if (lane == 0) prev = before;
+      before = last;
+      count_key(x[u].x, prev, starts, valid);
+      count_key(x[u].y, x[u].x, starts, valid);
+      count_key(x[u].z, x[u].y, starts, valid);
+      count_key(x[u].w, x[u].z, starts, valid);
     }
   }
-  if (starts) atomicAdd(&block_sum[0], starts);
-  if (valid) atomicAdd(&block_sum[1], valid);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {      // the keys outside the vectors
+    for (int64_t i = 0; i < n; ++i) {
+      if (i == head) i = head + 4 * nv;           // past the vectors
+      if (i >= n) break;
+      const int32_t v = s[i];
+      count_key(v, i > 0 ? s[i - 1] : ~v, starts, valid);
+    }
+  }
+  starts = __reduce_add_sync(kFull, starts);
+  valid = __reduce_add_sync(kFull, valid);
+  if (lane == 0) {
+    warp_sum[0][warp] = starts;
+    warp_sum[1][warp] = valid;
+  }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    if (block_sum[0]) atomicAdd(&out[0], block_sum[0]);
-    if (block_sum[1]) atomicAdd(&out[1], block_sum[1]);
+  if (threadIdx.x < 2) {
+    unsigned long long total = 0;
+    for (int w = 0; w < kThreads / 32; ++w) total += warp_sum[threadIdx.x][w];
+    if (total) atomicAdd(&out[threadIdx.x], total);
   }
 }
 
-// The length of the run of equal keys through each sorted slot, written to
-// the slot's original position order[i]: an exponential search outward from
-// i for each end of the run, then a binary search inside the last step, so a
-// run of r equal keys costs each of its slots O(log r) loads (a poly-A read
-// gives a run of tens of thousands).
+// The ends of the run of equal keys through s[i] == v: an exponential
+// search outward from i, then a binary search inside the last step, so a
+// run of r keys costs O(log r) dependent loads.
+__device__ int64_t run_first(const int32_t* __restrict__ s, int64_t i, int32_t v) {
+  int64_t good = i, bad = -1, step = 1;     // s[good] == v; s[bad] != v or bad == -1
+  while (i - step >= 0) {
+    const int64_t j = i - step;
+    if (s[j] != v) {
+      bad = j;
+      break;
+    }
+    good = j;
+    step <<= 1;
+  }
+  while (good - bad > 1) {
+    const int64_t mid = bad + (good - bad) / 2;
+    if (s[mid] == v) good = mid; else bad = mid;
+  }
+  return good;
+}
+
+__device__ int64_t run_last(const int32_t* __restrict__ s, int64_t n, int64_t i, int32_t v) {
+  int64_t good = i, bad = n, step = 1;      // s[good] == v; s[bad] != v or bad == n
+  while (i + step < n) {
+    const int64_t j = i + step;
+    if (s[j] != v) {
+      bad = j;
+      break;
+    }
+    good = j;
+    step <<= 1;
+  }
+  while (bad - good > 1) {
+    const int64_t mid = good + (bad - good) / 2;
+    if (s[mid] == v) good = mid; else bad = mid;
+  }
+  return good;
+}
+
+// The frequency scatter: the length of the run of equal keys through each
+// sorted slot i, clipped to 0xFFFF (0 for SENTINEL_KEY), written to the
+// slot's position order[i].  A block takes a tile of kFreqTile consecutive
+// slots, kFreqSlots a thread: its keys by 16-byte loads and its order
+// entries by 16-byte pairs (where `s` and `order` are 16-byte aligned and
+// the thread's slots lie in the array, else one at a time).  The keys
+// beside a thread's come from the lanes beside it by shuffles; lane 0 and
+// lane 31 load the one key before and after their warp's (the tile's halo
+// among them).  Each thread marks its slots' heads (a key unlike the one
+// before) and tails (unlike the one after, or the last slot) in two masks
+// of kFreqSlots bits.  A slot's run starts at the last head at or before it: in the
+// thread's own mask, else an exclusive max-scan of the threads' last heads
+// (warp shuffles, then the warps' totals through shared memory); it ends
+// at the first tail at or after it, by the mirror min-scan.  Only the
+// tile's first and last runs can cross its edges, and only they find no
+// head or no tail in the tile: thread 0 finds the first run's start and
+// the last thread the last run's end by run_first / run_last, the rest of
+// the block scanning meanwhile, so a run of r keys costs each tile it
+// crosses two O(log r) searches.  Saturation is OR-reduced in the block
+// and written once a block.  The stores freq[order[i]] are the function:
+// each thread issues its kFreqSlots stores unrolled.  A 2-byte store to a
+// random position writes part of a 32-byte sector, and a plane larger
+// than the L2 cache evicts most sectors part written, each written back
+// on its own.  So the grid makes one pass over the tiles for each window
+// of kFreqWindow positions of the plane, in order (blockIdx.x = window x
+// tiles + tile), and a pass stores only the counts whose position lies in
+// its window: the window's sectors fill in L2 before they are written
+// back, for one more read of the keys and permutation a window.  The keys
+// and permutation are read as streaming (evict-first) loads and the counts
+// stored under an L2 evict-last policy, so that the window's lines stay in
+// L2 while the reads stream past.  A window is kFreqWindow positions (32 MB
+// of the plane), or more where the plane needs more than kFreqMaxPasses of
+// them: each pass reads all 12 bytes a key again.
+constexpr int kFreqSlots = 8;
+constexpr int kFreqTile = kThreads * kFreqSlots;      // slots a block
+constexpr int64_t kFreqWindow = int64_t{1} << 24;     // positions a pass stores, at least
+constexpr int64_t kFreqMaxPasses = 4;
+
+__device__ __forceinline__ uint64_t evict_last_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ void store_evict_last(uint16_t* p, uint16_t v, uint64_t policy) {
+  asm volatile("st.global.L2::cache_hint.b16 [%0], %1, %2;" :: "l"(p), "h"(v), "l"(policy)
+               : "memory");
+}
+
 __global__ void __launch_bounds__(kThreads)
 freqs_kernel(const int32_t* __restrict__ s, const int64_t* __restrict__ order, int64_t n,
-             uint16_t* __restrict__ freq, int32_t* __restrict__ sat) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int32_t v = s[i];
-    const int64_t dst = order[i];
-    if (v == kSentinelKey) {
-      freq[dst] = 0;
-      continue;
+             int vec, unsigned tiles, int64_t window, uint16_t* __restrict__ freq,
+             int32_t* __restrict__ sat) {
+  __shared__ int32_t warp_head[kThreads / 32], warp_tail[kThreads / 32];
+  __shared__ int64_t edge[2];                      // the first run's start, the last run's end
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x % tiles) * kFreqTile;
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x / tiles) * window;
+  const int lo = tid * kFreqSlots;                 // the thread's first slot in the tile
+  const int64_t b0 = t0 + lo;
+  int32_t v[kFreqSlots];
+  int64_t dst[kFreqSlots];
+  if (vec && b0 + kFreqSlots <= n) {
+    const int4* sv = reinterpret_cast<const int4*>(s + b0);
+    const longlong2* ov = reinterpret_cast<const longlong2*>(order + b0);
+#pragma unroll
+    for (int q = 0; q < kFreqSlots / 4; ++q) {
+      const int4 x = __ldcs(sv + q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
     }
-    // first slot of the run: s[good] == v, and s[bad] != v or bad == -1
-    int64_t good = i, bad = -1, step = 1;
-    while (true) {
-      const int64_t j = i - step;
-      if (j < 0) break;
-      if (s[j] != v) { bad = j; break; }
-      good = j;
-      step <<= 1;
+#pragma unroll
+    for (int q = 0; q < kFreqSlots / 2; ++q) {
+      const longlong2 y = __ldcs(ov + q);
+      dst[2 * q] = y.x;
+      dst[2 * q + 1] = y.y;
     }
-    while (good - bad > 1) {
-      const int64_t mid = bad + (good - bad) / 2;
-      if (s[mid] == v) good = mid; else bad = mid;
-    }
-    const int64_t first = good;
-    // last slot: s[good] == v, and s[bad] != v or bad == n
-    good = i;
-    bad = n;
-    step = 1;
-    while (true) {
-      const int64_t j = i + step;
-      if (j >= n) break;
-      if (s[j] != v) { bad = j; break; }
-      good = j;
-      step <<= 1;
-    }
-    while (bad - good > 1) {
-      const int64_t mid = good + (bad - good) / 2;
-      if (s[mid] == v) good = mid; else bad = mid;
-    }
-    const int64_t count = good - first + 1;
-    if (count >= 0xFFFF) {
-      freq[dst] = 0xFFFF;
-      *sat = 1;
-    } else {
-      freq[dst] = static_cast<uint16_t>(count);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kFreqSlots; ++j) {
+      const bool in = b0 + j < n;
+      v[j] = in ? s[b0 + j] : kSentinelKey;
+      dst[j] = in ? order[b0 + j] : 0;
     }
   }
+  int32_t prev = __shfl_up_sync(kFull, v[kFreqSlots - 1], 1);
+  int32_t next = __shfl_down_sync(kFull, v[0], 1);
+  if (lane == 0) prev = b0 > 0 && b0 <= n ? s[b0 - 1] : ~v[0];
+  if (lane == 31) next = b0 + kFreqSlots < n ? s[b0 + kFreqSlots] : ~v[kFreqSlots - 1];
+  unsigned head = 0, tail = 0;
+#pragma unroll
+  for (int j = 0; j < kFreqSlots; ++j) {
+    const int32_t pj = j == 0 ? prev : v[j - 1];
+    const int32_t nj = j == kFreqSlots - 1 ? next : v[j + 1];
+    head |= static_cast<unsigned>(pj != v[j]) << j;
+    tail |= static_cast<unsigned>(nj != v[j] || b0 + j >= n - 1) << j;
+  }
+  // the scans: each thread's last head (-1: none) and first tail
+  // (kFreqTile: none), as tile indices
+  int hs = head ? lo + 31 - __clz(head) : -1;
+  int ts = tail ? lo + __ffs(tail) - 1 : kFreqTile;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int h = __shfl_up_sync(kFull, hs, d);
+    const int t = __shfl_down_sync(kFull, ts, d);
+    if (lane >= d) hs = max(hs, h);
+    if (lane + d < 32) ts = min(ts, t);
+  }
+  if (lane == 31) warp_head[warp] = hs;
+  if (lane == 0) warp_tail[warp] = ts;
+  int carry_h = __shfl_up_sync(kFull, hs, 1);
+  int carry_t = __shfl_down_sync(kFull, ts, 1);
+  if (lane == 0) carry_h = -1;
+  if (lane == 31) carry_t = kFreqTile;
+  // the runs across the tile's edges
+  if (tid == 0) edge[0] = (head & 1u) ? t0 : run_first(s, t0 - 1, v[0]);
+  if (tid == kThreads - 1)
+    edge[1] = (tail >> (kFreqSlots - 1)) ? b0 + kFreqSlots - 1
+                                         : run_last(s, n, b0 + kFreqSlots, v[kFreqSlots - 1]);
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) carry_h = max(carry_h, warp_head[w]);
+  for (int w = warp + 1; w < kThreads / 32; ++w) carry_t = min(carry_t, warp_tail[w]);
+  const int64_t first0 = edge[0], last0 = edge[1];
+  const uint64_t policy = evict_last_policy();
+  bool saturated = false;
+#pragma unroll
+  for (int j = 0; j < kFreqSlots; ++j) {
+    const unsigned hb = head & ((2u << j) - 1u);   // heads at or before slot j
+    const unsigned tb = tail & (~0u << j);         // tails at or after it
+    const int sl = hb ? lo + 31 - __clz(hb) : carry_h;
+    const int el = tb ? lo + __ffs(tb) - 1 : carry_t;
+    const int64_t cnt = (el < kFreqTile ? t0 + el : last0) - (sl >= 0 ? t0 + sl : first0) + 1;
+    uint16_t f = static_cast<uint16_t>(cnt);
+    if (v[j] == kSentinelKey) {
+      f = 0;
+    } else if (cnt >= 0xFFFF) {
+      f = 0xFFFF;
+      saturated = true;
+    }
+    if (b0 + j < n && static_cast<uint64_t>(dst[j] - w0) < static_cast<uint64_t>(window))
+      store_evict_last(freq + dst[j], f, policy);
+  }
+  if (__syncthreads_or(saturated) && tid == 0) *sat = 1;
 }
 
 // Shared-memory index of tile slot i: one pad word after every segment's
@@ -653,19 +846,46 @@ extern "C" int gb_kmer_canonical(const void* codes, const void* lengths, int64_t
                    : launch_canonical<1>(codes, lengths, B, L, k, keys, st);
 }
 
+// The run starts and the valid keys of the sorted keys at `sorted_keys`
+// (any 4-byte offset), added to out[0] and out[1] (uint64), which the
+// caller zeroes.
 extern "C" int gb_kmer_runs(const void* sorted_keys, int64_t n, void* out, void* stream) {
   if (n <= 0) return 0;
-  runs_kernel<<<grid_for(n, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(sorted_keys), n, static_cast<unsigned long long*>(out));
+  const auto* s = static_cast<const int32_t*>(sorted_keys);
+  const int64_t head = ((16 - (reinterpret_cast<uintptr_t>(s) & 15)) & 15) / 4;
+  const int h = static_cast<int>(head < n ? head : n);
+  const int64_t nv = (n - h) / 4;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t need = ((nv + kRunsChunk - 1) / kRunsChunk + kThreads / 32 - 1) / (kThreads / 32);
+  const int64_t wave = static_cast<int64_t>(sms) * kRunsBlocksPerSm * kRunsWaves;
+  const unsigned grid = static_cast<unsigned>(need < 1 ? 1 : (need < wave ? need : wave));
+  runs_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      s, n, h, nv, static_cast<unsigned long long*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
+// freq[order[i]] = the length of the run through sorted slot i (see
+// freqs_kernel); sat, which the caller zeroes, set to 1 where one reached
+// 0xFFFF.
 extern "C" int gb_kmer_freqs(const void* sorted_keys, const void* order, int64_t n, void* freq,
                              void* sat, void* stream) {
   if (n <= 0) return 0;
-  freqs_kernel<<<grid_for(n, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(sorted_keys), static_cast<const int64_t*>(order), n,
-      static_cast<uint16_t*>(freq), static_cast<int32_t*>(sat));
+  const int64_t tiles = (n + kFreqTile - 1) / kFreqTile;
+  const int64_t most = (n + kFreqMaxPasses - 1) / kFreqMaxPasses;
+  const int64_t window = most > kFreqWindow ? most : kFreqWindow;
+  const int64_t blocks = tiles * ((n + window - 1) / window);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = ((reinterpret_cast<uintptr_t>(sorted_keys) | reinterpret_cast<uintptr_t>(order))
+                   & 15) == 0;
+  freqs_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(sorted_keys), static_cast<const int64_t*>(order), n, vec,
+      static_cast<unsigned>(tiles), window, static_cast<uint16_t*>(freq),
+      static_cast<int32_t*>(sat));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,10 +36,11 @@ from genomicsbench_tpu_torch.io.seqio import load_fastx_batch
 from genomicsbench_tpu_torch.oracle.kmer import count_kmers_oracle, yield_minimizers_oracle
 from genomicsbench_tpu_torch.utils import offsets_from_lengths
 
-from torch_kmer_cases import (KS, WINDOWS, batch_of, canon_sweep_batches, edge_batch,
-                              exclusive_scan_maps, genome_reads, next_fronts,
-                              planted_minimizer_case, planted_uneven_case, poly_a_batch,
-                              segment_maps, segment_scan_walk, unit_sweep_keys, walk_hashes,
+from torch_kmer_cases import (FREQ_TILE, KS, WINDOWS, batch_of, canon_sweep_batches,
+                              edge_batch, exclusive_scan_maps, freq_tile_cases, genome_reads,
+                              next_fronts, planted_minimizer_case, planted_uneven_case,
+                              poly_a_batch, runs_view_cases, segment_maps, segment_scan_walk,
+                              tile_freqs, unit_sweep_keys, vector_runs, walk_hashes,
                               warmup_split_walk, write_fasta)
 
 # pytest-xdist runs several workers on the CPU's cores; torch's own thread
@@ -222,6 +223,103 @@ def test_per_position_freqs_saturate_on_poly_a():
     u, c = J.count_kmers(seq, lens, 15)
     tu, tc = T.count_kmers(seq, lens, 15, device=CPU)
     assert np.array_equal(tu, u) and np.array_equal(tc, c) and c.max() == 69_985
+
+
+# ------------------------------------ the run count's and the scatter's schedules
+FREQ_CASES = freq_tile_cases()
+RUNS_BUF, RUNS_VIEWS = runs_view_cases()
+
+
+def _sorted_keys(seq, lens, k):
+    s, order = torch.sort(T.canonical_keys_reference(torch.from_numpy(seq),
+                                                     torch.from_numpy(lens), k))
+    return s.numpy(), order.numpy()
+
+
+def _tile_freqs_equal_plain(s, order):
+    stats = {}
+    got, sat = tile_freqs(s, order, stats)
+    want, wsat = T.kmer_freqs_reference(torch.from_numpy(s), torch.from_numpy(order))
+    assert np.array_equal(got, want.numpy()) and np.array_equal(sat, wsat.numpy())
+    return stats.get("searches", []), int(sat[0])
+
+
+@pytest.mark.parametrize("case", sorted(FREQ_CASES))
+def test_tile_freqs_model_equals_plain(case):
+    """gb_kmer_freqs' tile schedule (tests/torch_kmer_cases.py tile_freqs)
+    bit for bit against the plain version at the tile edges; each tile
+    searches at most once a side, each search in O(log r) loads."""
+    s, order = FREQ_CASES[case]
+    searches, sat = _tile_freqs_equal_plain(s, order)
+    longest = int(np.diff(np.concatenate([[0], np.flatnonzero(np.diff(s)) + 1,
+                                          [len(s)]])).max())
+    assert len({(t, side) for t, side, _ in searches}) == len(searches)
+    assert all(len(loads) <= 2 * (longest + 1).bit_length() + 2 for _, _, loads in searches)
+    assert sat == (case in ("poly_a", "at_saturation"))
+    if case.startswith("edge_"):         # the runs that end at the edges take no search
+        assert all(t * FREQ_TILE - 1 not in loads for t, _, loads in searches)
+
+
+def test_tile_freqs_poly_a_searches_per_tile():
+    """The 69,985-key run crosses 35 tiles: each searches once a side for
+    it (two O(log r) searches a tile), no slot searching on its own."""
+    s, order = FREQ_CASES["poly_a"]
+    searches, _ = _tile_freqs_equal_plain(s, order)
+    lo = int(np.searchsorted(s, s[2_000 + 0xFFFE]))
+    hi = int(np.searchsorted(s, s[lo], side="right"))
+    assert hi - lo == 69_985
+    inside = [t for t, _, _ in searches if lo // FREQ_TILE <= t <= (hi - 1) // FREQ_TILE]
+    assert len(inside) <= 2 * ((hi - 1) // FREQ_TILE - lo // FREQ_TILE + 1)
+    assert max(len(loads) for _, _, loads in searches) <= 2 * (69_985).bit_length() + 2
+
+
+@pytest.mark.parametrize("window", [1, 1_000, FREQ_TILE + 1])
+def test_tile_freqs_window_passes(window):
+    """Windows smaller than the plane: every position stored by exactly one
+    pass, the plane the same."""
+    s, order = FREQ_CASES["odd"]
+    stats = {}
+    got, sat = tile_freqs(s, order, stats, window=window)
+    want, wsat = T.kmer_freqs_reference(torch.from_numpy(s), torch.from_numpy(order))
+    assert np.array_equal(got, want.numpy()) and np.array_equal(sat, wsat.numpy())
+    assert len(stats["stores"]) == -(-len(s) // window) and sum(stats["stores"]) == len(s)
+
+
+@pytest.mark.parametrize("case", ["genome", "edge", "poly_a_batch"])
+def test_tile_freqs_model_on_kmer_keys(case):
+    seq, lens = {"genome": GENOME, "edge": EDGE, "poly_a_batch": poly_a_batch()}[case]
+    _tile_freqs_equal_plain(*_sorted_keys(seq, lens, 15))
+
+
+@pytest.mark.parametrize("off", [0, 4, 8, 12])
+def test_vector_runs_model_equals_plain(off):
+    """gb_kmer_runs' read (tests/torch_kmer_cases.py vector_runs): the keys
+    from byte offset `off` of an aligned buffer, n 1-70 and around a
+    warp's chunk, 1 and 3 warps striding, against the plain version on the
+    same view."""
+    for o, n in RUNS_VIEWS:
+        if o != off:
+            continue
+        view = torch.from_numpy(RUNS_BUF[off // 4:off // 4 + n].copy())
+        want = T.kmer_runs_reference(view).tolist()
+        for warps in (1, 3):
+            assert list(vector_runs(RUNS_BUF, off, n, warps)) == want, (n, warps)
+
+
+@pytest.mark.parametrize("case", sorted(FREQ_CASES))
+def test_vector_runs_model_on_tile_cases(case):
+    s = FREQ_CASES[case][0]
+    for j in range(4):
+        want = T.kmer_runs_reference(torch.from_numpy(s[j:].copy())).tolist()
+        assert list(vector_runs(s, 4 * j, len(s) - j)) == want, j
+
+
+def test_kmer_runs_cpu_views():
+    """The wrapper on CPU views s[j:] of a sorted tensor: the plain version
+    of each view."""
+    s = torch.from_numpy(RUNS_BUF)
+    for j in range(4):
+        assert T.kmer_runs(s[j:]).tolist() == list(vector_runs(RUNS_BUF, 4 * j, len(s) - j))
 
 
 # --------------------------------------------------------------- minimizers

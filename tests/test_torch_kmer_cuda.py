@@ -20,12 +20,14 @@ from genomicsbench_tpu_torch.oracle.kmer import count_kmers_oracle, yield_minimi
 from genomicsbench_tpu_torch.utils import offsets_from_lengths
 
 from torch_kmer_cases import (KS, WINDOWS, batch_of, canon_sweep_batches, edge_batch,
-                              genome_reads, poly_a_batch, write_fasta)
+                              FREQ_WINDOW, freq_tile_cases, genome_reads, keys_of_runs,
+                              poly_a_batch, runs_view_cases, short_runs, write_fasta)
 
 pytestmark = pytest.mark.cuda
 TILE = 2048                 # positions a tile of gb_kmer_minimizers (csrc/kmer.cu kMinTile)
 CASES = {"edge": edge_batch(), "edge93": edge_batch(93),
          "genome": genome_reads(64, 3_000, genome_len=40_000, seed=9)}
+FREQ_CASES = freq_tile_cases()
 
 
 @pytest.fixture
@@ -88,6 +90,65 @@ def test_poly_a_freqs_saturate(card):
     wf, wsat = T.kmer_freqs_reference(s, order)
     assert torch.equal(f, wf) and int(sat) == int(wsat) == 1
     assert T.count_kmers(seq, lens, 15, device=card)[1].max() == 69_985
+
+
+@pytest.mark.parametrize("case", sorted(FREQ_CASES))
+def test_freqs_and_runs_at_tile_edges(card, case):
+    """gb_kmer_freqs' tile edges (runs ending one slot before, at and after
+    them), a run over several whole tiles, sentinel-only tiles, runs of
+    0xFFFE, 0xFFFF and 69,985 keys (the saturation flag), n of 1, below a
+    tile and not a multiple of one: the frequencies, the flag and the run
+    count bit for bit."""
+    s, order = (torch.from_numpy(a).to(card) for a in FREQ_CASES[case])
+    f, sat = T.kmer_freqs(s, order)
+    wf, wsat = T.kmer_freqs_reference(s, order)
+    assert torch.equal(f, wf) and torch.equal(sat, wsat)
+    assert int(sat) == (case in ("poly_a", "at_saturation"))
+    assert torch.equal(T.kmer_runs(s), T.kmer_runs_reference(s))
+
+
+def test_freqs_across_windows(card):
+    """Keys of 2.5 of the kernel's store windows (three passes), runs of
+    1-40 and a long run across the first window edge, against the plain
+    version on a random permutation."""
+    n = FREQ_WINDOW * 5 // 2
+    s = keys_of_runs(short_runs(FREQ_WINDOW - 5_000, 1, longest=40) + [90_000]
+                     + short_runs(n - FREQ_WINDOW - 85_000, 2, longest=40), seed=3)
+    order = np.random.default_rng(4).permutation(n)
+    s, order = torch.from_numpy(s).to(card), torch.from_numpy(order).to(card)
+    f, sat = T.kmer_freqs(s, order)
+    wf, wsat = T.kmer_freqs_reference(s, order)
+    assert torch.equal(f, wf) and torch.equal(sat, wsat) and int(sat) == 1
+
+
+def test_freqs_unaligned_views(card):
+    """Keys and permutation as views one slot into their buffers (not
+    16-byte aligned: the kernel's one-at-a-time loads)."""
+    s, order = FREQ_CASES["odd"]
+    sb = torch.from_numpy(np.concatenate([[0], s]).astype(np.int32)).to(card)
+    ob = torch.from_numpy(np.concatenate([[0], order]).astype(np.int64)).to(card)
+    for sv, ov in ((sb[1:], ob[1:]), (sb[1:], torch.from_numpy(order).to(card)),
+                   (torch.from_numpy(s).to(card), ob[1:])):
+        f, sat = T.kmer_freqs(sv, ov)
+        wf, wsat = T.kmer_freqs_reference(sv, ov)
+        assert torch.equal(f, wf) and torch.equal(sat, wsat)
+
+
+@pytest.mark.parametrize("off", [0, 4, 8, 12])
+def test_runs_views_match_plain(card, off):
+    """gb_kmer_runs on views s[j:] of sorted keys on the card: byte offsets
+    0, 4, 8 and 12 from a 16-byte boundary, n 1-70 and around a warp's
+    chunk; and the tile cases' keys from the same offsets."""
+    buf, views = runs_view_cases()
+    b = torch.from_numpy(buf).to(card)
+    assert b.data_ptr() % 16 == 0
+    for o, n in views:
+        if o == off:
+            v = b[off // 4:off // 4 + n]
+            assert torch.equal(T.kmer_runs(v), T.kmer_runs_reference(v)), n
+    for case, (s, _) in FREQ_CASES.items():
+        v = torch.from_numpy(s).to(card)[off // 4:]
+        assert torch.equal(T.kmer_runs(v), T.kmer_runs_reference(v)), case
 
 
 @pytest.mark.parametrize("window", WINDOWS + (63, 64, 70))

@@ -391,3 +391,262 @@ def warmup_split_walk(codes, lengths, k, window, seg):
                 if p >= a:
                     mask[b, front] = True
     return raw, mask
+
+
+# ------------------------------------------ the run count and the frequencies
+# Sorted key arrays for gb_kmer_runs and gb_kmer_freqs.  SENTINEL_KEY (no
+# k-mer) sorts last; a run is a stretch of equal keys.
+SENTINEL = 0x7FFFFFFF
+FREQ_SLOTS = 8                      # sorted slots a thread of gb_kmer_freqs
+FREQ_THREADS = 256
+FREQ_TILE = FREQ_THREADS * FREQ_SLOTS
+FREQ_WINDOW = 1 << 24               # positions of the plane a pass of gb_kmer_freqs stores,
+FREQ_MAX_PASSES = 4                 # or more where the plane needs more passes than this
+RUNS_UNROLL = 4                     # 16-byte loads a lane takes at a time in gb_kmer_runs
+RUNS_CHUNK = 32 * RUNS_UNROLL       # vectors a warp takes at a time
+
+
+def keys_of_runs(lengths, sentinels=0, seed=0):
+    """Sorted int32 keys: a run of each length in `lengths`, of distinct
+    increasing random values (negative ones among them), then `sentinels`
+    SENTINEL keys."""
+    rng = np.random.default_rng(seed)
+    step = (SENTINEL + (1 << 31)) // (len(lengths) + 1)
+    vals = -(1 << 31) + np.cumsum(rng.integers(1, step + 1, len(lengths)))
+    keys = np.repeat(vals, np.asarray(lengths, np.int64))
+    return np.concatenate([keys, np.full(sentinels, SENTINEL, np.int64)]).astype(np.int32)
+
+
+def short_runs(n, seed, longest=4):
+    """Run lengths of 1..longest summing to n."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, longest + 1, n // 2 + 2)
+    lens = lens[:int(np.searchsorted(np.cumsum(lens), n)) + 1]
+    lens[-1] -= lens.sum() - n
+    return [int(x) for x in lens if x > 0]
+
+
+def runs_ending_at(ends, n, seed):
+    """Run lengths summing to n in which a run ends at each slot of `ends`
+    (its last slot), short runs elsewhere."""
+    out, at = [], 0
+    for i, e in enumerate(sorted(ends) + [n - 1]):
+        if e >= at:
+            out += short_runs(e + 1 - at, seed + i)
+            at = e + 1
+    return out
+
+
+def freq_tile_cases(seed=0):
+    """{label: (sorted int32 keys, int64 permutation)}: the tile edges of
+    gb_kmer_freqs (FREQ_TILE slots a block) and its edge searches.
+    `edge_{d}`: runs ending exactly one slot before, at and after each of
+    three tile edges (d -1, 0, 1), and runs crossing them by one slot;
+    `across_tiles`: a run over three whole tiles and parts of two more;
+    `poly_a`: a run of 69,985 keys (a 70,000-base poly-A read's 15-mer:
+    saturating) beside runs of 0xFFFE and 0xFFFF; `below_saturation`: a
+    run of 0xFFFE, the longest that does not saturate; `at_saturation`: a
+    run of 0xFFFF, the shortest that does; `sentinel_tail`: sentinels
+    from the middle of a tile to the end; `sentinel_tiles`: sentinels filling
+    two whole tiles from a tile edge; `one`, `below_tile`, `odd`: n of 1,
+    1,000 and 3 tiles + 77."""
+    T = FREQ_TILE
+    cases = {}
+    for d in (-1, 0, 1):
+        n = 4 * T + 100
+        ends = [k * T + d - 1 for k in (1, 2, 3)] + [k * T + d for k in (1, 2, 3)]
+        cases[f"edge_{d}"] = keys_of_runs(runs_ending_at(ends, n, seed + 30 + d),
+                                          seed=seed + 10 + d)
+    cases["across_tiles"] = keys_of_runs(
+        short_runs(T - 300, seed) + [3 * T + 700] + short_runs(T + 9, seed + 1), seed=seed + 20)
+    cases["poly_a"] = keys_of_runs(short_runs(2_000, seed + 2) + [0xFFFE, 69_985, 0xFFFF]
+                                   + short_runs(1_000, seed + 3), sentinels=45, seed=seed + 21)
+    cases["below_saturation"] = keys_of_runs(short_runs(500, seed + 8) + [0xFFFE],
+                                             sentinels=3, seed=seed + 27)
+    cases["at_saturation"] = keys_of_runs(short_runs(300, seed + 9) + [0xFFFF]
+                                          + short_runs(40, seed + 10), seed=seed + 28)
+    cases["sentinel_tail"] = keys_of_runs(short_runs(2 * T + 1_234, seed + 4),
+                                          sentinels=T + 2_000, seed=seed + 22)
+    cases["sentinel_tiles"] = keys_of_runs(short_runs(2 * T - 3, seed + 5) + [3],
+                                           sentinels=2 * T, seed=seed + 23)
+    cases["one"] = keys_of_runs([1], seed=seed + 24)
+    cases["below_tile"] = keys_of_runs(short_runs(1_000, seed + 6, longest=9), sentinels=17,
+                                       seed=seed + 25)
+    cases["odd"] = keys_of_runs(short_runs(3 * T + 77, seed + 7, longest=30), sentinels=5,
+                                seed=seed + 26)
+    rng = np.random.default_rng(seed + 99)
+    return {k: (s, rng.permutation(len(s)).astype(np.int64)) for k, s in cases.items()}
+
+
+def _run_first(s, i, v, loads):
+    good, bad, step = i, -1, 1
+    while i - step >= 0:
+        loads.append(i - step)
+        if s[i - step] != v:
+            bad = i - step
+            break
+        good, step = i - step, 2 * step
+    while good - bad > 1:
+        mid = bad + (good - bad) // 2
+        loads.append(mid)
+        good, bad = (mid, bad) if s[mid] == v else (good, mid)
+    return good
+
+
+def _run_last(s, n, i, v, loads):
+    good, bad, step = i, n, 1
+    while i + step < n:
+        loads.append(i + step)
+        if s[i + step] != v:
+            bad = i + step
+            break
+        good, step = i + step, 2 * step
+    while bad - good > 1:
+        mid = good + (bad - good) // 2
+        loads.append(mid)
+        good, bad = (mid, bad) if s[mid] == v else (good, mid)
+    return good
+
+
+def _warp_scan(x, op, up):
+    """Hillis-Steele inclusive scan over the last axis (32 lanes), as the
+    kernel's shuffles do it: __shfl_up_sync (up) or __shfl_down_sync."""
+    x = x.copy()
+    lane = np.arange(32)
+    d = 1
+    while d < 32:
+        if up:
+            y = np.concatenate([x[..., :d], x[..., :-d]], -1)
+            x = np.where(lane >= d, op(x, y), x)
+        else:
+            y = np.concatenate([x[..., d:], x[..., -d:]], -1)
+            x = np.where(lane + d < 32, op(x, y), x)
+        d *= 2
+    return x
+
+
+def freq_window(n):
+    """The positions a pass of gb_kmer_freqs stores, for n keys."""
+    return max(FREQ_WINDOW, -(-n // FREQ_MAX_PASSES))
+
+
+def tile_freqs(s, order, stats=None, window=None):
+    """A numpy model of gb_kmer_freqs' schedule (csrc/kmer.cu): (freq (n,)
+    uint16, sat (1,) int32).  Each tile of FREQ_TILE sorted slots, FREQ_SLOTS
+    a thread, with the key before and after it (the halo); each thread's
+    head and tail masks, its last head and first tail, their exclusive
+    max- and min-scans across the warp's lanes by shuffles and across the
+    block's warps; the first run's start and the last run's end by the edge
+    searches where the tile has no head or tail for them; each slot's count
+    from the head and tail at or around it; then, a pass for each `window`
+    positions of the plane, the counts whose position lies in it.  With
+    `stats`, a dict, the loads of every edge search go to
+    stats["searches"] as (tile, side, loads) and the stores of each pass to
+    stats["stores"]."""
+    s = np.asarray(s, np.int64)
+    n = len(s)
+    T, S, W = FREQ_TILE, FREQ_SLOTS, FREQ_THREADS // 32
+    freq = np.zeros(n, np.uint16)
+    sat = 0
+    counts = np.zeros(n, np.int64)
+    for t0 in range(0, n, T):
+        idx = t0 + np.arange(T)
+        v = np.where(idx < n, s[np.minimum(idx, n - 1)], SENTINEL)
+        prev = np.concatenate([[s[t0 - 1] if t0 > 0 else ~v[0]], v[:-1]])
+        nxt = np.concatenate([v[1:], [s[t0 + T] if t0 + T < n else ~v[-1]]])
+        head = (prev != v).reshape(W, 32, S)
+        tail = ((nxt != v) | (idx >= n - 1)).reshape(W, 32, S)
+        local = np.arange(T).reshape(W, 32, S)
+        hs = np.where(head, local, -1).max(-1)                  # each thread's last head
+        ts = np.where(tail, local, T).min(-1)                   # and first tail
+        hs, ts = _warp_scan(hs, np.maximum, True), _warp_scan(ts, np.minimum, False)
+        carry_h = np.concatenate([np.full((W, 1), -1), hs[:, :-1]], 1)
+        carry_t = np.concatenate([ts[:, 1:], np.full((W, 1), T)], 1)
+        for w in range(W):
+            carry_h[w] = np.maximum(carry_h[w], max([-1] + [hs[u, 31] for u in range(w)]))
+            carry_t[w] = np.minimum(carry_t[w], min([T] + [ts[u, 0] for u in range(w + 1, W)]))
+        first0, last0 = t0, t0 + T - 1
+        if not head[0, 0, 0]:
+            loads = []
+            first0 = _run_first(s, t0 - 1, v[0], loads)
+            if stats is not None:
+                stats.setdefault("searches", []).append((t0 // T, "first", loads))
+        if not tail[-1, -1, -1]:
+            loads = []
+            last0 = _run_last(s, n, t0 + T, v[-1], loads)
+            if stats is not None:
+                stats.setdefault("searches", []).append((t0 // T, "last", loads))
+        # the slot's run: the last head at or before it in its thread, else
+        # the carry; the first tail at or after it, else the carry
+        sl = np.maximum(np.maximum.accumulate(np.where(head, local, -1), -1), carry_h[..., None])
+        el = np.minimum(np.minimum.accumulate(np.where(tail, local, T)[..., ::-1], -1)[..., ::-1],
+                        carry_t[..., None])
+        cnt = (np.where(el < T, t0 + el, last0) - np.where(sl >= 0, t0 + sl, first0) + 1).ravel()
+        ok = (v != SENTINEL) & (idx < n)
+        sat |= bool((ok & (cnt >= 0xFFFF)).any())
+        here = idx < n
+        counts[idx[here]] = np.where(v[here] == SENTINEL, 0, np.minimum(cnt[here], 0xFFFF))
+    order = np.asarray(order, np.int64)
+    window = window or freq_window(n)
+    for w0 in range(0, n, window):
+        inside = (order >= w0) & (order < w0 + window)
+        freq[order[inside]] = counts[inside]
+        if stats is not None:
+            stats.setdefault("stores", []).append(int(inside.sum()))
+    return freq, np.array([int(sat)], np.int32)
+
+
+def vector_runs(buf, off, n, warps=3):
+    """A numpy model of gb_kmer_runs' read (csrc/kmer.cu): (run starts,
+    valid keys) of the n int32 keys at byte offset `off` (a multiple of 4)
+    of the 16-byte aligned int32 array `buf`.  The keys before the first
+    16-byte boundary (0-3) and after the last whole vector are counted one
+    at a time; the vectors between in chunks of RUNS_CHUNK, `warps` warps
+    striding over them, each lane RUNS_UNROLL vectors 32 apart, its left
+    neighbour the lane before's last key and lane 0's the previous step's
+    lane 31's, or at a chunk's start the key before the chunk; vectors past
+    the end read as sentinels."""
+    keys = np.asarray(buf, np.int64)[off // 4:off // 4 + n]
+    head = min(((16 - off % 16) % 16) // 4, n)
+    nv = (n - head) // 4
+    starts = valid = 0
+
+    def count(v, prev):
+        ok = v != SENTINEL
+        return int((ok & (v != prev)).sum()), int(ok.sum())
+
+    chunks = [c for w in range(warps) for c in range(w, -(-nv // RUNS_CHUNK), warps)]
+    for c in chunks:
+        v0 = c * RUNS_CHUNK
+        vid = v0 + np.arange(RUNS_UNROLL)[:, None] * 32 + np.arange(32)    # (unroll, lane)
+        x = np.full((RUNS_UNROLL, 32, 4), SENTINEL, np.int64)
+        inside = vid < nv
+        x[inside] = keys[head + 4 * vid[inside, None] + np.arange(4)]
+        p = head + 4 * v0 - 1
+        before = keys[p] if p >= 0 else ~x[0, 0, 0]
+        for u in range(RUNS_UNROLL):
+            prev = np.concatenate([[before], x[u, :-1, 3]])
+            before = x[u, 31, 3]
+            st, va = count(x[u].ravel(), np.stack([prev, x[u, :, 0], x[u, :, 1], x[u, :, 2]],
+                                                   1).ravel())
+            starts, valid = starts + st, valid + va
+    i = 0
+    while i < n:
+        if i == head:
+            i = head + 4 * nv
+            if i >= n:
+                break
+        st, va = count(keys[i:i + 1], keys[i - 1:i] if i > 0 else ~keys[i:i + 1])
+        starts, valid, i = starts + st, valid + va, i + 1
+    return starts, valid
+
+
+def runs_view_cases(seed=0):
+    """(16-byte aligned int32 buffer, [(byte offset, n)]): sorted keys with
+    runs and trailing sentinels, viewed at byte offsets 0, 4, 8 and 12 with n
+    of 1-70, and n around a chunk's RUNS_CHUNK vectors."""
+    buf = keys_of_runs(short_runs(2_600, seed, longest=5), sentinels=300, seed=seed)
+    views = [(off, n) for off in (0, 4, 8, 12) for n in range(1, 71)]
+    views += [(off, n) for off in (0, 4, 8, 12)
+              for n in (4 * RUNS_CHUNK - 1, 4 * RUNS_CHUNK + 5, 2_880)]
+    return buf, views
