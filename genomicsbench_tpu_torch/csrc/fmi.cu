@@ -15,9 +15,7 @@
 // `fmi_extend_reference`) compute, value for value: the emits in each work
 // item's walk order, the caps and overflow flag of the smem1 walk (at most
 // CP intervals in a list, ME emits per item), and per work item the rank
-// lines and extension steps of its walk.  seed3 and extend run one work
-// item's scalar loop a thread (the recipe of
-// tools/ref_drivers/fmi_gold.cpp:106-159 and :246-290), and it always ends.
+// lines and extension steps of its walk.
 //
 // The table: one 32-byte line per 64 BWT rows, int32 [occ0..occ3 | plane0
 // lo, hi | plane1 lo, hi], read as two int4 through the read-only path.  A
@@ -84,6 +82,48 @@
 // and none waits for its slowest item.  tests/torch_fmi_cases.py
 // `lane_group_smem1` models this schedule and the CPU tests hold it bit
 // for bit against the plain version.
+//
+// seed3's design (bwt_seed_strategy1, tools/ref_drivers/fmi_gold.cpp:106-159):
+// a read on a group of kSeedGroup lanes, 32 / kSeedGroup reads a warp,
+// every read one chain of dependent extension steps (143 on the bench
+// batch's reads of 151).  A thread a read, as this walk was first written,
+// read each step's base from global memory and tested it before it issued
+// the step's line loads, so a step carried two dependent trips, and its
+// warp ran the nested loops of seeds of different lengths, each lane
+// waiting at every seed's end for the slowest.  Here:
+//   - the read is staged once into the group's slice of shared memory by
+//     16-byte loads (reads wider than kSeedStageMax stay in global memory
+//     and are read through the same pointer);
+//   - the walk is one flat loop of rounds, one extension step a live group
+//     a round: a seed's end, an emit, an ambiguous base or the read's end
+//     reseeds in the same round (the scan past ambiguous bases reads only
+//     the staged bases), so a warp waits only for its longest chain;
+//   - a step's rows l and l + s do not depend on its base, so its lines are
+//     loaded at the top of the round, before the base and the end tests; a
+//     round that finds an ambiguous base or the read's end discards them
+//     (the counters count the sequential walk's loads and steps only);
+//   - lane j of a group loads row j's line (row l's, or row l + s's, the
+//     same as l's where both lie in one block), adds its share of the four
+//     interval sizes and of the rank at l, and the group sums the shares
+//     by shuffles: both lanes run one path, where lanes split by the
+//     line's counts and planes ran both one after the other (that form
+//     took 0.2692 ms against 0.2311, tools/sites_seed3_ab.py --variants,
+//     NVIDIA H100 80GB HBM3, 700 W);
+//   - a group that ends its read takes the next from a per-launch counter,
+//     one atomic a warp for the groups that need one.
+// tests/torch_fmi_cases.py `staged_seed3` models this schedule (rounds,
+// parts, discarded loads) and the CPU tests hold it bit for bit against
+// the plain version; the card tests hold the kernel's rounds to it.
+//
+// extend keeps a thread a lane.  The e-table's lanes of a read are
+// adjacent starts, so a warp's lanes walk one read in lockstep and share
+// the lines of a repeat (1.30 lines a step on the SSR batch against 1.57
+// for seed3's reads), and all of the SSR batch's 252,472 chains are in
+// flight at once; seed3's design, which holds a third of them in flight
+// and lets a warp's lanes drift apart, took 0.44 ms there against this
+// layout's 0.18 (tools/sites_seed3_ab.py, NVIDIA H100 80GB HBM3, 700 W).
+// A step's lines are loaded before its end and base tests, which they do
+// not depend on (about 1% faster); a step that ends there discards them.
 
 #include <cuda_runtime.h>
 
@@ -94,7 +134,14 @@
 namespace {
 
 constexpr int kCpMax = 24;     // interval-list slots (JAX's CP cap)
-constexpr int kThreads = 128;  // seed3 and extend: a thread per work item
+constexpr int kThreads = 128;  // extend: a thread per work item
+// seed3: lanes a read (2 beside 1 and 4 in tools/sites_seed3_ab.py
+// --variants: 37% and 26% faster), warps a block, and the most bytes a
+// read's slice of shared memory takes (wider reads are read from global
+// memory; unstaged, seed3 took 8-13% longer)
+constexpr int kSeedGroup = 2;
+constexpr int kSeedWarps = 4;
+constexpr int kSeedStageMax = 384;
 // smem1: lanes a work item (4 beside 2 and 8 in tools/fmi_head_ab.py
 // --variants: pass 1 3% and 29% faster, pass 2 11% and 34%), items a warp,
 // warps a block, and the most bytes of a read a group stages (wider reads
@@ -109,6 +156,8 @@ constexpr int kStageMax = 1024;
 constexpr int kMinBlocks = 8;
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(32 % kGroup == 0 && kGroup < 32, "a lane group divides a warp");
+static_assert(kSeedGroup == 1 || kSeedGroup == 2 || kSeedGroup == 4, "a line is 4 parts");
+constexpr int kSeedParts = 4 / kSeedGroup;     // 16-byte parts of a step's lines a lane
 
 struct Fmd {
     const int4* __restrict__ table;   // 2 int4 per line: counts, planes
@@ -137,21 +186,36 @@ __device__ __forceinline__ void rank4(const int4 cnt, const int4 pl, int row, in
     r[0] -= ((sent >> 6) == (row >> 6)) & (sent < row);
 }
 
-// The symmetric FMD extension core (`_ext_pick_sym`, ops/fmi.py:309-328):
-// the rank pair at rows a and a + s, picking symbol c.  Backward extension
-// is (a, other) = (k, l) with c = base, forward (a, other) = (l, k) with
-// c = 3 - base.  Returns the rank lines loaded.
-__device__ __forceinline__ int ext(const Fmd& f, int a, int other, int s, int c,
-                                   int& a_n, int& other_n, int& s_n) {
+// The lines an extension at rows a and a + s reads: counts and planes of
+// row a's line and of row a + s's
+struct Lines {
+    int4 ca, pa, cb, pb;
+};
+
+// The lines of an extension at rows a and a + s: one load pair, or two
+// when the rows lie in different blocks, issued together
+__device__ __forceinline__ Lines ext_lines(const Fmd& f, int a, int s) {
+    const int blk_a = a >> 6, blk_b = (a + s) >> 6;
+    Lines t;
+    t.ca = __ldg(f.table + 2 * (int64_t)blk_a);
+    t.pa = __ldg(f.table + 2 * (int64_t)blk_a + 1);
+    t.cb = t.ca, t.pb = t.pa;
+    if (blk_b != blk_a) {
+        t.cb = __ldg(f.table + 2 * (int64_t)blk_b);
+        t.pb = __ldg(f.table + 2 * (int64_t)blk_b + 1);
+    }
+    return t;
+}
+
+// The symmetric FMD extension core (`_ext_pick_sym`, ops/fmi.py:309-328)
+// on its loaded lines: the rank pair at rows a and a + s, picking symbol c.
+// Backward extension is (a, other) = (k, l) with c = base, forward (a,
+// other) = (l, k) with c = 3 - base.  Returns the rank lines loaded.
+__device__ __forceinline__ int ext_on(const Fmd& f, const Lines& t, int a, int other, int s,
+                                      int c, int& a_n, int& other_n, int& s_n) {
     const int b = a + s;
     const int blk_a = a >> 6, blk_b = b >> 6;
-    const int4 ca = __ldg(f.table + 2 * (int64_t)blk_a);
-    const int4 pa = __ldg(f.table + 2 * (int64_t)blk_a + 1);
-    int4 cb = ca, pb = pa;
-    if (blk_b != blk_a) {
-        cb = __ldg(f.table + 2 * (int64_t)blk_b);
-        pb = __ldg(f.table + 2 * (int64_t)blk_b + 1);
-    }
+    const int4 ca = t.ca, pa = t.pa, cb = t.cb, pb = t.pb;
     int lo[4], hi[4];
     rank4(ca, pa, a, f.sent, lo);
     rank4(cb, pb, b, f.sent, hi);
@@ -164,8 +228,10 @@ __device__ __forceinline__ int ext(const Fmd& f, int a, int other, int s, int c,
     return blk_a == blk_b ? 1 : 2;
 }
 
-__device__ __forceinline__ int base_at(const uint8_t* __restrict__ q, int pos, int L) {
-    return __ldg(q + (pos < L ? pos : L - 1));
+// `ext_on`, its lines loaded first
+__device__ __forceinline__ int ext(const Fmd& f, int a, int other, int s, int c,
+                                   int& a_n, int& other_n, int& s_n) {
+    return ext_on(f, ext_lines(f, a, s), a, other, s, c, a_n, other_n, s_n);
 }
 
 // C[b] and the single-base interval's size C[b + 1] - C[b], by selects
@@ -181,6 +247,103 @@ __device__ __forceinline__ int c_size(const Fmd& f, int b) {
 __host__ __device__ __forceinline__ int slice_bytes(int L) {
     const int stage = (L + 30) / 16 * 16;
     return kCpMax * 16 + (stage <= kStageMax ? stage : 0);
+}
+
+// A seed3 group's slice: the read staged at its 16-byte phase, or nothing
+// for reads wider than kSeedStageMax
+__host__ __device__ __forceinline__ int seed_slice_bytes(int L) {
+    const int stage = (L + 30) / 16 * 16;
+    return stage <= kSeedStageMax ? stage : 0;
+}
+
+// seed3 groups that need a read take the next ones from `work`,
+// one atomic a warp.  Returns the group's item, or -1 where it asked for
+// none or the counter has passed n (`over` is then set).  Every lane of
+// the warp calls it.
+__device__ __forceinline__ int take_item(bool need, bool& over, int lane, unsigned* work,
+                                         int n) {
+    const int g0 = lane - lane % kSeedGroup;
+    const bool ask = need && !over;
+    const unsigned wants = __ballot_sync(kFull, ask && lane == g0);
+    unsigned first = 0;
+    if (lane == 0 && wants) first = atomicAdd(work, (unsigned)__popc(wants));
+    first = __shfl_sync(kFull, first, 0);
+    if (!ask) return -1;
+    const unsigned got = first + __popc(wants & ((1u << g0) - 1u));
+    if (got >= (unsigned)n) {
+        over = true;
+        return -1;
+    }
+    return (int)got;
+}
+
+// The first nst bases of a read into the group's slice at the read's
+// 16-byte phase, 16 bytes a lane; returns where the staged bases start
+__device__ __forceinline__ const uint8_t* stage_read(const uint8_t* src, int nst,
+                                                     uint8_t* stage, int gl) {
+    const int ph = (int)(reinterpret_cast<uintptr_t>(src) & 15);
+    const int4* line = reinterpret_cast<const int4*>(src - ph);
+    for (int c = gl; c * 16 < ph + nst; c += kSeedGroup)
+        reinterpret_cast<int4*>(stage)[c] = __ldg(line + c);
+    return stage + ph;
+}
+
+// A seed3 step's lines on a group of kSeedGroup lanes, loaded before its
+// base is known: of the 16-byte parts [counts, planes of row a's line,
+// counts, planes of row b's line], lane gl takes kSeedParts from part
+// kSeedParts gl on (with 2 lanes, lane j row j's line whole, so both lanes
+// take one path through each part; a lone lane reuses row a's parts where
+// both rows share a block)
+__device__ __forceinline__ void load_step(const Fmd& f, int a, int b, int gl, bool on,
+                                          int4 (&part)[kSeedParts]) {
+    const int ba = a >> 6, bb = b >> 6;
+    if (!on) return;
+#pragma unroll
+    for (int i = 0; i < kSeedParts; ++i) {
+        const int p = kSeedParts * gl + i;
+        if (kSeedGroup == 1 && p >= 2 && bb == ba)
+            part[i] = part[i & 1];
+        else
+            part[i] = __ldg(f.table + 2 * (int64_t)(p < 2 ? ba : bb) + (p & 1));
+    }
+}
+
+// `ext` from a group's loaded parts: each lane adds its share of the four
+// interval sizes (rank at b less rank at a) and of the rank at a of symbol
+// c, the group sums the shares by shuffles; c < 0 for a group that makes
+// no step this round.  Every lane of the warp calls it.  Returns the rank
+// lines the step loads.
+__device__ __forceinline__ int group_ext(const Fmd& f, const int4 (&part)[kSeedParts], int a,
+                                         int other, int s, int c, int gl, int& a_n, int& other_n,
+                                         int& s_n) {
+    const int b = a + s;
+    int P[4] = {0, 0, 0, 0}, Q = 0;
+    if (c >= 0) {
+#pragma unroll
+        for (int i = 0; i < kSeedParts; ++i) {
+            const int p = kSeedParts * gl + i;
+            int r[4];
+            if (p & 1) {
+                rank4(make_int4(0, 0, 0, 0), part[i], p < 2 ? a : b, f.sent, r);
+            } else {
+                r[0] = part[i].x, r[1] = part[i].y, r[2] = part[i].z, r[3] = part[i].w;
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) P[j] += p < 2 ? -r[j] : r[j];
+            if (p < 2) Q += sel4(r[0], r[1], r[2], r[3], c);
+        }
+    }
+#pragma unroll
+    for (int off = kSeedGroup / 2; off > 0; off >>= 1) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) P[j] += __shfl_xor_sync(kFull, P[j], off);
+        Q += __shfl_xor_sync(kFull, Q, off);
+    }
+    const int sent_cnt = (f.sent >= a) & (f.sent < b);
+    other_n = other + sent_cnt + sel4(P[1] + P[2] + P[3], P[2] + P[3], P[3], 0, c);
+    a_n = c_at(f, c) + Q;
+    s_n = sel4(P[0], P[1], P[2], P[3], c);
+    return (a >> 6) == (b >> 6) ? 1 : 2;
 }
 
 enum Phase { kIdle, kScan, kFwd, kBwd };
@@ -393,62 +556,115 @@ fmi_smem1_kernel(Fmd f, const uint8_t* __restrict__ query, int L,
     }
 }
 
-// bwt_seed_strategy1, one read per thread.  out: count[n], loads[n],
-// steps[n], then n x EM3 slots of (m, n, k, s), n inclusive.
-__global__ void __launch_bounds__(kThreads)
-fmi_seed3_kernel(Fmd f, const uint8_t* __restrict__ query, int L,
-                 const int* __restrict__ qlen, int64_t n, int mi, int min_len, int EM3,
-                 int* __restrict__ out) {
-    const int64_t w = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-    if (w >= n) return;
-    const uint8_t* q = query + w * L;
-    const int ql = qlen[w];
-    int* slots = out + 3 * n + w * (int64_t)EM3 * 4;
-    int count = 0, loads = 0, steps = 0;
-    int x = 0;
-    while (x < ql) {
-        const int nb = base_at(q, x, L);
-        if (nb >= 4) {
-            ++x;
-            continue;
+// bwt_seed_strategy1, a read on a group of kSeedGroup lanes (the design in the
+// file's head).  out (zeroed by the caller): count[n], loads[n], steps[n],
+// then n x EM3 slots of (m, n, k, s), n inclusive; `work` the item
+// counter, 0 at launch; `rounds`, where not null, the rounds each read
+// took.
+__global__ void __launch_bounds__(kSeedWarps * 32)
+fmi_seed3_kernel(Fmd f, const uint8_t* __restrict__ query, int L, const int* __restrict__ qlen,
+                 int n, int mi, int min_len, int EM3, int* __restrict__ out,
+                 int* __restrict__ rounds, unsigned* __restrict__ work) {
+    extern __shared__ int4 sh[];
+    const int lane = threadIdx.x & 31, gl = lane % kSeedGroup;
+    const int slice = seed_slice_bytes(L);
+    uint8_t* stage = reinterpret_cast<uint8_t*>(sh) + (threadIdx.x / kSeedGroup) * slice;
+    const int last = L - 1;
+    // the group's state, the same in each of its lanes
+    int w = 0, ql = 0, x = 0, k = 0, l = 0, s = 0, exr = 0, ee = 0;
+    int count = 0, loads = 0, steps = 0, nround = 0;
+    bool alive = false, tail = false, need = true, over = false;
+    const uint8_t* rd = stage;              // the read's bases, staged or in global memory
+    // the next position at or after x that seeds, and its bi-interval
+    auto seed = [&]() {
+        while (x < ql && rd[x < last ? x : last] >= 4) ++x;
+        alive = x < ql;
+        if (alive) {
+            const int nb = rd[x < last ? x : last];
+            k = c_at(f, nb);
+            l = c_at(f, 3 - nb);
+            s = c_size(f, nb);
+            tail = s < mi;                  // a seed under the floor: e(x) = x
+            exr = tail ? x : x + 1;         // the floored end e(x) once known
+            ee = x + 1;
         }
-        int k = f.C[nb], l = f.C[3 - nb], s = f.C[nb + 1] - f.C[nb];
-        bool tail = s < mi;             // a seed under the floor: e(x) = x
-        int exr = tail ? x : x + 1;     // the floored end e(x) once known
-        int ee = x + 1;
-        for (;;) {
-            const int pos = ee;
-            const int c = pos < ql ? base_at(q, pos, L) : 4;
-            if (c >= 4) {               // ambiguous base or read end: no emit
+    };
+    auto finish = [&]() {
+        if (gl == 0) {
+            out[w] = count;
+            out[n + w] = loads;
+            out[2 * (int64_t)n + w] = steps;
+            if (rounds) rounds[w] = nround;
+        }
+        need = true;
+    };
+    for (;;) {
+        while (__any_sync(kFull, need && !over)) {
+            const int got = take_item(need, over, lane, work, n);
+            if (got >= 0) {
+                w = got;
+                ql = qlen[w];
+                count = loads = steps = nround = 0;
+                x = 0;
+                rd = query + (int64_t)w * L;
+                if (slice > 0 && ql > 0) rd = stage_read(rd, ql < L ? ql : L, stage, gl);
+                need = false;
+            }
+            __syncwarp();                   // the staged bases, for the group's lanes
+            if (got >= 0) {
+                seed();
+                if (!alive) finish();
+            }
+        }
+        if (!__any_sync(kFull, alive)) break;
+        // one extension step a live group: the step's lines first, then
+        // its base, which they do not depend on
+        int4 part[kSeedParts];
+        load_step(f, l, l + s, gl, alive, part);
+        const int pos = ee;
+        const int c = alive && pos < ql ? rd[pos < last ? pos : last] : 4;
+        int l_n, k_n, s_n;
+        const int nl = group_ext(f, part, l, k, s, c < 4 ? 3 - c : -1, gl, l_n, k_n, s_n);
+        if (alive) {
+            ++nround;
+            if (c < 4) {
+                loads += nl;
+                ++steps;
+                if (!tail && s_n < mi) {
+                    exr = ee;
+                    tail = true;
+                }
+                const int istar = exr > x + min_len ? exr : x + min_len;
+                k = k_n;
+                l = l_n;
+                s = s_n;
+                ee = pos + 1;
+                if (tail && pos >= istar) {     // [x, istar] covered: emit, hop
+                    if (gl == 0) {
+                        int* sl = out + 3 * (int64_t)n +
+                                  ((int64_t)w * EM3 + (count < EM3 ? count : EM3 - 1)) * 4;
+                        sl[0] = x;
+                        sl[1] = istar;
+                        sl[2] = k_n;
+                        sl[3] = s_n;
+                    }
+                    ++count;
+                    x = istar + 1;
+                    seed();
+                }
+            } else {                            // ambiguous base or read end: no emit
                 x = pos >= ql ? ql : pos + 1;
-                break;
+                seed();
             }
-            int l_n, k_n, s_n;
-            loads += ext(f, l, k, s, 3 - c, l_n, k_n, s_n);
-            ++steps;
-            if (!tail && s_n < mi) {
-                exr = ee;
-                tail = true;
-            }
-            const int istar = exr > x + min_len ? exr : x + min_len;
-            k = k_n; l = l_n; s = s_n;
-            ee = pos + 1;
-            if (tail && pos >= istar) {  // [x, istar] covered: emit, hop
-                int* sl = slots + (count < EM3 ? count : EM3 - 1) * 4;
-                sl[0] = x; sl[1] = istar; sl[2] = k_n; sl[3] = s_n;
-                ++count;
-                x = istar + 1;
-                break;
-            }
+            if (!alive) finish();
         }
+        __syncwarp();
     }
-    out[w] = count;
-    out[n + w] = loads;
-    out[2 * n + w] = steps;
 }
 
 // Forward extension, one lane per thread, with floor min_intv[w], to
-// max_e[w] or death.  out: e[n], k[n], s[n], loads[n], steps[n].
+// max_e[w] or death (the design in the file's head).  out: e[n], k[n],
+// s[n], loads[n], steps[n].
 __global__ void __launch_bounds__(kThreads)
 fmi_extend_kernel(Fmd f, const uint8_t* __restrict__ query, int L,
                   const int* __restrict__ qlen, const int* __restrict__ qrow,
@@ -461,20 +677,23 @@ fmi_extend_kernel(Fmd f, const uint8_t* __restrict__ query, int L,
     const int ql = qlen[row], st = start[w], mi = min_intv[w], me = max_e[w];
     const int base0 = __ldg(q + (st < 0 ? 0 : (st < L ? st : L - 1)));
     const int b0 = base0 < 3 ? base0 : 3;
-    int k = f.C[b0], l = f.C[3 - b0];
-    const int s0 = f.C[b0 + 1] - f.C[b0];
+    int k = c_at(f, b0), l = c_at(f, 3 - b0);
+    const int s0 = c_size(f, b0);
     bool alive = base0 < 4 && st < ql && st >= 0 && s0 >= mi;
     int s = alive ? s0 : 0, e = alive ? st + 1 : st, loads = 0, steps = 0;
     while (alive) {
         const int pos = e;
+        const Lines t = ext_lines(f, l, s);     // before the tests: they need no base
         if (pos >= ql || pos >= me) break;
-        const int c = base_at(q, pos, L);
+        const int c = __ldg(q + (pos < L ? pos : L - 1));
         if (c >= 4) break;
         int l_n, k_n, s_n;
-        loads += ext(f, l, k, s, 3 - c, l_n, k_n, s_n);
+        loads += ext_on(f, t, l, k, s, 3 - c, l_n, k_n, s_n);
         ++steps;
         if (s_n < mi) break;
-        k = k_n; l = l_n; s = s_n;
+        k = k_n;
+        l = l_n;
+        s = s_n;
         e = pos + 1;
     }
     out[w] = e;
@@ -492,13 +711,13 @@ Fmd make_fmd(const void* table, int c0, int c1, int c2, int c3, int c4, int sent
     return f;
 }
 
-unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
-
-// The SM count and the smem1 kernel's resident blocks an SM at `shared`
-// bytes on the current device, asked once per (device, shared) and kept.
-cudaError_t resident(size_t shared, int* sms, int* per_sm) {
+// The SM count and a kernel's resident blocks an SM at `threads` and
+// `shared` bytes on the current device, asked once per (device, kernel,
+// shared) and kept.
+cudaError_t resident(const void* kernel, int threads, size_t shared, int* sms, int* per_sm) {
     struct Seen {
         int dev;
+        const void* kernel;
         size_t shared;
         int sms, per_sm;
     };
@@ -509,15 +728,14 @@ cudaError_t resident(size_t shared, int* sms, int* per_sm) {
     if (err != cudaSuccess) return err;
     const std::lock_guard<std::mutex> lock(mu);
     for (const Seen& o : seen)
-        if (o.dev == dev && o.shared == shared) {
+        if (o.dev == dev && o.kernel == kernel && o.shared == shared) {
             *sms = o.sms, *per_sm = o.per_sm;
             return cudaSuccess;
         }
-    Seen o{dev, shared, 0, 0};
+    Seen o{dev, kernel, shared, 0, 0};
     err = cudaDeviceGetAttribute(&o.sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o.per_sm, fmi_smem1_kernel,
-                                                            kWarps * 32, shared);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o.per_sm, kernel, threads, shared);
     if (err != cudaSuccess) return err;
     seen.push_back(o);
     *sms = o.sms, *per_sm = o.per_sm;
@@ -543,7 +761,9 @@ int gb_fmi_smem1(const void* table, const uint8_t* query, int L, const int* qlen
     const size_t shared = (size_t)kWarps * kGroups * slice_bytes(L);
     int sms = 0, per_sm = 0;
     cudaError_t err = cudaMemsetAsync(work, 0, sizeof(unsigned), s);
-    if (err == cudaSuccess) err = resident(shared, &sms, &per_sm);
+    if (err == cudaSuccess)
+        err = resident(reinterpret_cast<const void*>(fmi_smem1_kernel), kWarps * 32, shared, &sms,
+                       &per_sm);
     if (err != cudaSuccess) return (int)err;
     const int64_t wanted = (n + kWarps * kGroups - 1) / (kWarps * kGroups);
     const int64_t fit = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
@@ -553,13 +773,29 @@ int gb_fmi_smem1(const void* table, const uint8_t* query, int L, const int* qlen
     return (int)cudaGetLastError();
 }
 
+// out: (3 + 4 EM3) n int32 zeroed by the caller, and one more for the work
+// counter; rounds: n int32 or null.
 int gb_fmi_seed3(const void* table, const uint8_t* query, int L, const int* qlen, int64_t n,
                  int min_intv, int min_len, int EM3, int c0, int c1, int c2, int c3, int c4,
-                 int sent, int* out, void* stream) {
-    if (EM3 < 1 || L < 1 || min_len < 1) return (int)cudaErrorInvalidValue;
-    fmi_seed3_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        make_fmd(table, c0, c1, c2, c3, c4, sent), query, L, qlen, n, min_intv, min_len, EM3,
-        out);
+                 int sent, int* out, int* rounds, void* stream) {
+    if (EM3 < 1 || L < 1 || min_len < 1 || n < 0 || n > (1 << 30))
+        return (int)cudaErrorInvalidValue;
+    if (n == 0) return 0;
+    const auto st = (cudaStream_t)stream;
+    auto* work = reinterpret_cast<unsigned*>(out + (3 + 4 * (int64_t)EM3) * n);
+    const int threads = kSeedWarps * 32;
+    const size_t shared = (size_t)(threads / kSeedGroup) * seed_slice_bytes(L);
+    int sms = 0, per_sm = 0;
+    cudaError_t err = cudaMemsetAsync(work, 0, sizeof(unsigned), st);
+    if (err == cudaSuccess)
+        err = resident(reinterpret_cast<const void*>(fmi_seed3_kernel), threads, shared, &sms,
+                       &per_sm);
+    if (err != cudaSuccess) return (int)err;
+    const int64_t wanted = (n * kSeedGroup + threads - 1) / threads;
+    const int64_t fit = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+    fmi_seed3_kernel<<<(unsigned)(wanted < fit ? wanted : fit), threads, shared, st>>>(
+        make_fmd(table, c0, c1, c2, c3, c4, sent), query, L, qlen, (int)n, min_intv, min_len,
+        EM3, out, rounds, work);
     return (int)cudaGetLastError();
 }
 
@@ -568,9 +804,10 @@ int gb_fmi_extend(const void* table, const uint8_t* query, int L, const int* qle
                   int64_t n, int c0, int c1, int c2, int c3, int c4, int sent, int* out,
                   void* stream) {
     if (L < 1) return (int)cudaErrorInvalidValue;
-    fmi_extend_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        make_fmd(table, c0, c1, c2, c3, c4, sent), query, L, qlen, qrow, start, min_intv,
-        max_e, n, out);
+    if (n <= 0) return 0;
+    fmi_extend_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+                        (cudaStream_t)stream>>>(make_fmd(table, c0, c1, c2, c3, c4, sent), query,
+                                                L, qlen, qrow, start, min_intv, max_e, n, out);
     return (int)cudaGetLastError();
 }
 

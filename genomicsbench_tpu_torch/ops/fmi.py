@@ -771,8 +771,9 @@ def fmi_seed3(tab: FmdTables, query, qlen, *, min_intv: int, min_len: int) -> Wa
     if dev.type != "cuda":
         raise ValueError(f"fmi_seed3 runs on cuda or cpu tensors, not {dev}")
     EM3 = seed3_cap(L, min_len)
-    buf = torch.zeros(B * (SEED3_HEAD + 4 * EM3), dtype=_I32, device=dev)
-    res = _walk_out(buf, B, EM3, SEED3_HEAD)
+    # one int32 past the outputs: the kernel's work counter
+    full = torch.zeros(B * (SEED3_HEAD + 4 * EM3) + 1, dtype=_I32, device=dev)
+    res = _walk_out(full[:-1], B, EM3, SEED3_HEAD)
     if B == 0:
         return res
     from genomicsbench_tpu_torch import _kernels
@@ -781,7 +782,7 @@ def fmi_seed3(tab: FmdTables, query, qlen, *, min_intv: int, min_len: int) -> Wa
     with torch.cuda.device(dev):
         rc = lib.gb_fmi_seed3(tab.table.data_ptr(), query.data_ptr(), L, qlen.data_ptr(), B,
                               int(min_intv), int(min_len), EM3, *_launch_consts(tab),
-                              buf.data_ptr(), _stream(dev))
+                              full.data_ptr(), None, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"fmi seed3 kernel launch failed with cudaError {rc}")
     fmi_seed3.launches += 1

@@ -402,6 +402,80 @@ def test_lane_group_model_on_pass2_items(indexes, label):
     _model_vs_plain(index, q, ql, items)
 
 
+# ------------------------------------------------- the seed walk's schedule (model)
+SEED3 = cases.seed3_cases()
+SEED3_FIELDS = ("count", "loads", "steps", "slots")
+
+
+def _seed3_model_vs_plain(index, q, ql, min_intv, min_len, group=cases.SEED3_GROUP):
+    """`staged_seed3` (the model of gb_fmi_seed3's staged, load-first lane
+    groups) against the plain version, every field bit for bit; returns
+    the model's result."""
+    want = fmi.fmi_seed3_reference(index.device("cpu"), _t(q), _t(ql), min_intv=min_intv,
+                                   min_len=min_len)
+    got = cases.staged_seed3(index, q, ql, min_intv=min_intv, min_len=min_len, group=group)
+    for f in SEED3_FIELDS:
+        np.testing.assert_array_equal(got[f], getattr(want, f).numpy(), err_msg=f)
+    # a round is a step, or an ambiguous base or the read's end met with
+    # the step's loads in flight
+    np.testing.assert_array_equal(got["rounds"], got["steps"] + got["discarded"])
+    return got
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("label", sorted(SEED3))
+def test_staged_seed3_model_on_seed_edges(label, group):
+    """Reads of length 0, 1 and under min_len, runs of N and an N at the
+    last base, widths 1,001 and 1,500 past the staged width, qlen past the
+    width: the model at each lane-group size == the plain version."""
+    c = SEED3[label]
+    index = fmi.build_fmd_index(c["ref"])
+    got = _seed3_model_vs_plain(index, c["query"], c["qlen"], c["min_intv"], c["min_len"],
+                                group)
+    if label == "short":
+        # the empty read takes no round; one base, a round whose loads the
+        # read's end discards; two bases, one step
+        assert list(got["rounds"][:3]) == [0, 1, 2] and list(got["steps"][:3]) == [0, 0, 1]
+    if label == "ambiguous":
+        assert got["rounds"][4] == 0 and got["discarded"][1] >= 1
+
+
+def test_staged_seed3_model_past_em3():
+    """Emits past a small EM3 overwrite its last slot, as the plain walk's
+    clamp does; the slots before it are the plain version's."""
+    c = SEED3["em3_overflow"]
+    index = fmi.build_fmd_index(c["ref"])
+    want = fmi.fmi_seed3_reference(index.device("cpu"), _t(c["query"]), _t(c["qlen"]),
+                                   min_intv=c["min_intv"], min_len=c["min_len"])
+    em3 = c["em3"]
+    got = cases.staged_seed3(index, c["query"], c["qlen"], min_intv=c["min_intv"],
+                             min_len=c["min_len"], em3=em3)
+    count, slots = want.count.numpy(), want.slots.numpy()
+    assert (count > em3).all()
+    np.testing.assert_array_equal(got["count"], count)
+    np.testing.assert_array_equal(got["slots"][:, :em3 - 1], slots[:, :em3 - 1])
+    np.testing.assert_array_equal(got["slots"][:, em3 - 1], slots[np.arange(len(count)),
+                                                                  count - 1])
+
+
+@pytest.mark.parametrize("label", sorted(PIPE_CASES))
+def test_staged_seed3_model_on_edges(indexes, label):
+    """Every fmi edge case's pass 3 (min_intv max_mem_intv, min_len
+    min_seed_len + 1, as FmiPipeline calls it) through the model."""
+    c = EDGES[label]
+    _seed3_model_vs_plain(indexes[label][1], c["query"], c["qlen"], c["max_mem_intv"],
+                          c["min_seed_len"] + 1)
+
+
+def test_staged_seed3_model_on_bench_reads(indexes):
+    """64 bench-shaped reads of 151 bases over the 200 kb index, at each
+    lane-group size: every round a step but the reads' ends."""
+    q, ql = cases.bench_fmi_reads(cases.bench_fmi_reference(200_000, 3), 64, seed=9)
+    for group in (1, 2, 4):
+        got = _seed3_model_vs_plain(indexes["200k"][1], q, ql, 20, 20, group)
+        assert (got["discarded"] <= 1).all() and got["steps"].sum() > 64 * 100
+
+
 # ------------------------------------------------------------------ fmi_gold
 def test_64_reads_match_fmi_gold(indexes, tmp_path):
     _, t = indexes["200k"]

@@ -20,6 +20,7 @@ import torch_fmi_cases as cases
 pytestmark = pytest.mark.cuda
 EDGES = cases.edge_cases()
 CAPS = cases.cap_cases()
+SEED3 = cases.seed3_cases()
 
 
 @pytest.fixture
@@ -120,6 +121,63 @@ def test_smem1_wide_reads_from_global_memory(card, width):
     qd, qld = _dev(q, card), _dev(c["qlen"], card)
     assert torch.equal(fmi.fmi_smem1(tab, qd, qld, min_seed_len=19).buf,
                        fmi.fmi_smem1_reference(tab, qd, qld, min_seed_len=19).buf)
+
+def _seed3_with_rounds(tab, q, ql, min_intv, min_len, em3):
+    """gb_fmi_seed3 through its C entry with the rounds each read took, at
+    `em3` slots; returns (the outputs, the rounds)."""
+    from genomicsbench_tpu_torch import _kernels
+
+    B, L = q.shape
+    full = torch.zeros(B * (fmi.SEED3_HEAD + 4 * em3) + 1, dtype=torch.int32, device=q.device)
+    rounds = torch.zeros(B, dtype=torch.int32, device=q.device)
+    rc = _kernels.load().gb_fmi_seed3(
+        tab.table.data_ptr(), q.data_ptr(), L, ql.data_ptr(), B, min_intv, min_len, em3,
+        *fmi._launch_consts(tab), full.data_ptr(), rounds.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    return full[:-1], rounds
+
+
+@pytest.mark.parametrize("label", sorted(SEED3) + sorted(k for k in EDGES
+                                                       if "items" not in EDGES[k]))
+def test_seed3_follows_the_model(card, label):
+    """Reads of length 0, 1 and under min_len, N runs and an N at the last
+    base, emits past a small EM3, widths 1,001 and 1,500 past the staged
+    width, qlen past the width, and every edge case's pass 3: gb_fmi_seed3
+    == the plain version (at the wrapper's EM3) and == `staged_seed3`, the
+    model of its schedule, bit for bit, with each read's rounds."""
+    c = SEED3.get(label) or dict(EDGES[label], min_intv=EDGES[label]["max_mem_intv"],
+                                  min_len=EDGES[label]["min_seed_len"] + 1)
+    index = fmi.build_fmd_index(c["ref"])
+    tab = index.device(card)
+    q, ql = _dev(c["query"], card), _dev(c["qlen"], card)
+    kw = dict(min_intv=c["min_intv"], min_len=c["min_len"])
+    em3 = c.get("em3") or fmi.seed3_cap(q.shape[1], c["min_len"])
+    got, rounds = _seed3_with_rounds(tab, q, ql, c["min_intv"], c["min_len"], em3)
+    model = cases.staged_seed3(index, c["query"], c["qlen"], em3=em3, **kw)
+    res = fmi._walk_out(got, q.shape[0], em3, fmi.SEED3_HEAD)
+    for f in ("count", "loads", "steps", "slots"):
+        np.testing.assert_array_equal(getattr(res, f).cpu().numpy(), model[f], err_msg=f)
+    np.testing.assert_array_equal(rounds.cpu().numpy(), model["rounds"])
+    if "em3" not in c:
+        assert torch.equal(got, fmi.fmi_seed3_reference(tab, q, ql, **kw).buf)
+        assert torch.equal(fmi.fmi_seed3(tab, q, ql, **kw).buf, got)
+
+
+@pytest.mark.parametrize("label", ["qlen_past_width", "width1001", "width1500"] +
+                         sorted(k for k in EDGES if "items" not in EDGES[k]))
+def test_extend_on_every_start(card, label):
+    """gb_fmi_extend on every start -1 .. width + 1 of every read, floors 0,
+    1, 3 and 40 and max_e at half the width, its lines loaded before its
+    tests: == the plain version."""
+    c = EDGES[label] if label in EDGES else SEED3[label]
+    tab = fmi.build_fmd_index(c["ref"]).device(card)
+    q, ql = _dev(c["query"], card), _dev(c["qlen"], card)
+    lanes = [_dev(a, card) for a in cases.extend_lanes(c["query"], c["qlen"])]
+    assert torch.equal(fmi.fmi_extend(tab, q, ql, *lanes),
+                       fmi.fmi_extend_reference(tab, q, ql, *lanes))
+
 
 @pytest.mark.parametrize("label", ["ambiguous", "short", "poly_a", "repetitive"])
 def test_pipeline_on_the_card_matches_bruteforce(card, label):

@@ -21,13 +21,15 @@ from genomicsbench_tpu_torch.utils import offsets_from_lengths
 
 from torch_kmer_cases import (KS, WINDOWS, batch_of, canon_sweep_batches, edge_batch,
                               FREQ_WINDOW, freq_tile_cases, genome_reads, keys_of_runs,
-                              poly_a_batch, runs_view_cases, short_runs, write_fasta)
+                              poly_a_batch, runs_view_cases, short_runs, site_cases,
+                              write_fasta)
 
 pytestmark = pytest.mark.cuda
 TILE = 2048                 # positions a tile of gb_kmer_minimizers (csrc/kmer.cu kMinTile)
 CASES = {"edge": edge_batch(), "edge93": edge_batch(93),
          "genome": genome_reads(64, 3_000, genome_len=40_000, seed=9)}
 FREQ_CASES = freq_tile_cases()
+SITE_CASES = site_cases()
 
 
 @pytest.fixture
@@ -167,6 +169,29 @@ def test_minimizers_and_sites_match_plain(card, k, window):
             wreps, wgpos = T.minimizer_sites_reference(wraw, wmask, lt, offs, k)
             got = torch.stack([reps, gpos], 1).tolist()
             assert sorted(got) == sorted(torch.stack([wreps, wgpos], 1).tolist())
+
+
+@pytest.mark.parametrize("case", sorted(SITE_CASES))
+def test_sites_at_every_mask_offset(card, case):
+    """gb_kmer_sites on masks at byte offsets 0-15 and raw planes at both
+    8-byte phases, rows of 1 to 20,000, no sites, every site, offsets past
+    2^33: its pairs == the plain version's, sorted."""
+    raw, mask, lengths, offsets, k = SITE_CASES[case]
+    B, L = raw.shape
+    N = B * L
+    lt, offs = torch.from_numpy(lengths).to(card), torch.from_numpy(offsets).to(card)
+    want = T.minimizer_sites_reference(*map(torch.from_numpy, (raw, mask, lengths, offsets)), k)
+    want = sorted(torch.stack(want, 1).tolist())
+    mbuf = torch.zeros(N + 16, dtype=torch.bool, device=card)
+    rbuf = torch.zeros(N + 1, dtype=torch.int64, device=card)
+    for sh in range(16):
+        m = mbuf[sh:sh + N].view(B, L)
+        m.copy_(torch.from_numpy(mask))
+        for phase in (0, 1):
+            r = rbuf[phase:phase + N].view(B, L)
+            r.copy_(torch.from_numpy(raw))
+            reps, gpos = T.minimizer_sites(r, m, lt, offs, k)
+            assert sorted(torch.stack([reps, gpos], 1).tolist()) == want, (sh, phase)
 
 
 def test_genome_batch_against_oracles(card):

@@ -90,7 +90,7 @@ PORT_FILES = sorted((ROOT / "genomicsbench_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "torch_kmer_cases.py", ROOT / "tests" / "torch_basecaller_cases.py",
     ROOT / "tests" / "torch_grm_cases.py", ROOT / "tests" / "torch_longread_cases.py",
     ROOT / "tests" / "torch_pileup_cases.py", ROOT / "tests" / "torch_dbg_cases.py",
-    ROOT / "tools" / "kmer_ab.py",
+    ROOT / "tools" / "kmer_ab.py", ROOT / "tools" / "sites_seed3_ab.py",
 ]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "genomicsbench_tpu")
 

@@ -532,3 +532,166 @@ def lane_group_smem1(index, query, qlen, qrow=None, pivot=None, min_intv=None, *
                 break
         ovf[w], loads[w], steps[w], rounds[w] = ovf_w, loads_w, steps_w, rounds_w
     return dict(count=count, ovf=ovf, loads=loads, steps=steps, slots=slots, rounds=rounds)
+
+
+# ------------------------------------------------------- the seed3 schedule
+# gb_fmi_seed3's lanes a read (csrc/fmi.cu kSeedGroup)
+SEED3_GROUP = 2
+
+
+def _part_ranks(line, sent, row, p):
+    """Lane part p of a rank at `row` from its 8-int line: the line's counts
+    (p even), or the plane popcounts with the sentinel row taken out (p
+    odd), as gb_fmi_seed3's lanes compute them."""
+    if p % 2 == 0:
+        return list(line[:4])
+    r = _line_ranks({row >> 6: line}, sent, row)
+    return [r[i] - line[i] for i in range(4)]
+
+
+def seed3_cap_of(width, min_len):
+    """EM3 of a walk over width `width` (ops/fmi.py `seed3_cap`)."""
+    return min(width + 1, max(16, width // max(min_len, 1) + 2))
+
+
+def _group_step(table, C, sent, a, other, s, cc, group):
+    """A step from its lines' four 16-byte parts on `group` lanes, 4 / group
+    consecutive parts a lane: each lane's share of the interval sizes and
+    of the rank at a, summed (the shuffles); checked against csrc/fmi.cu
+    `ext`.  Returns (a', other', s', rank lines loaded)."""
+    b = a + s
+    lines = [table[a >> 6], table[a >> 6], table[b >> 6], table[b >> 6]]
+    P, Q = [0, 0, 0, 0], 0
+    per = 4 // group
+    for gl in range(group):                 # lane gl takes parts per * gl ..
+        for p in range(per * gl, per * (gl + 1)):
+            r = _part_ranks(lines[p], sent, a if p < 2 else b, p)
+            sign = -1 if p < 2 else 1
+            P = [P[i] + sign * r[i] for i in range(4)]
+            if p < 2:
+                Q += r[cc]
+    suf = (P[1] + P[2] + P[3], P[2] + P[3], P[3], 0)
+    got = (C[cc] + Q, other + int(a <= sent < b) + suf[cc], P[cc],
+           1 if (a >> 6) == (b >> 6) else 2)
+    assert got == _line_ext(table, C, sent, a, other, s, cc)
+    return got
+
+
+def staged_seed3(index, query, qlen, *, min_intv, min_len, group=SEED3_GROUP, em3=None):
+    """A model of `gb_fmi_seed3`'s schedule, one read at a time on its group
+    of `group` lanes, in the kernel's rounds: the read staged (positions at
+    or past the width read its last base, as the plain version's clamp
+    does); a round loads the step's lines first, the 16-byte parts [counts,
+    planes of row l's line, counts, planes of row l + s's] 4 / group a lane
+    (with 2 lanes, lane j row j's line), then reads the step's base; an
+    ambiguous base or the read's
+    end discards the loads and reseeds past it in the same round, as an
+    emit does; each lane adds its share of the four interval sizes and of
+    the rank at l, and the group's sum is the step.  Counts only the
+    sequential walk's loads and steps.  `em3` (default the wrapper's cap)
+    sizes the slots; an emit past them overwrites the last.
+
+    `index` is an FmdIndex (host arrays).  Returns the plain version's
+    (count, loads, steps, slots) as numpy arrays, the rounds each read took
+    and the rounds whose loads were discarded."""
+    table = index.packed().tolist()
+    C = [int(c) for c in index.C]
+    sent = int(index.sentinel_row)
+    query = np.asarray(query, np.uint8)
+    qlen = np.asarray(qlen, np.int64)
+    B, L = query.shape
+    EM3 = em3 or seed3_cap_of(L, min_len)
+    count, loads, steps, rounds, discarded = (np.zeros(B, np.int64) for _ in range(5))
+    slots = np.zeros((B, EM3, 4), np.int64)
+    for w in range(B):
+        ql = int(qlen[w])
+        rd = query[w, :max(min(ql, L), 0)].tolist()     # the staged bases
+
+        def base(p):
+            return rd[min(p, L - 1)]
+
+        def reseed(x):
+            while x < ql and base(x) >= 4:
+                x += 1
+            if x >= ql:
+                return x, None
+            nb = base(x)
+            s = C[nb + 1] - C[nb]
+            tail = s < min_intv
+            return x, [C[nb], C[3 - nb], s, tail, x if tail else x + 1, x + 1]
+
+        x, st = reseed(0) if ql >= 1 else (0, None)
+        while st is not None:
+            rounds[w] += 1
+            k, l, s, tail, exr, ee = st
+            pos = ee
+            c = base(pos) if pos < ql else 4
+            if c >= 4:                      # the loads discarded, no emit
+                discarded[w] += 1
+                x, st = reseed(ql if pos >= ql else pos + 1)
+                continue
+            l_n, k_n, s_n, nl = _group_step(table, C, sent, l, k, s, 3 - c, group)
+            loads[w] += nl
+            steps[w] += 1
+            if not tail and s_n < min_intv:
+                exr, tail = ee, True
+            istar = max(exr, x + min_len)
+            if tail and pos >= istar:       # [x, istar] covered: emit, hop
+                slots[w, min(count[w], EM3 - 1)] = (x, istar, k_n, s_n)
+                count[w] += 1
+                x, st = reseed(istar + 1)
+            else:
+                st = [k_n, l_n, s_n, tail, exr, pos + 1]
+    return dict(count=count, loads=loads, steps=steps, slots=slots, rounds=rounds,
+                discarded=discarded)
+
+
+def extend_lanes(query, qlen, floors=((1, 1 << 30), (0, None), (3, 1 << 30), (40, 1 << 30))):
+    """E-table lanes over every read of a batch: each start -1 .. width + 1
+    with each (floor, max_e) of `floors` (max_e None: half the width), as
+    int32 (qrow, start, min_intv, max_e)."""
+    B, L = np.asarray(query).shape
+    starts = np.arange(-1, L + 2, dtype=np.int32)
+    qrow, start, mi, me = [], [], [], []
+    for floor, end in floors:
+        qrow.append(np.repeat(np.arange(B, dtype=np.int32), len(starts)))
+        start.append(np.tile(starts, B))
+        mi.append(np.full(B * len(starts), floor, np.int32))
+        me.append(np.full(B * len(starts), L // 2 if end is None else end, np.int32))
+    return tuple(np.concatenate(v) for v in (qrow, start, mi, me))
+
+
+def seed3_cases():
+    """label -> dict(ref, query, qlen, min_intv, min_len) for the seed walk's
+    edges: reads of length 0, 1 and below min_len; runs of N and an N at
+    the last base; reads whose emits pass a small EM3 (`em3`, for the C
+    entry: the wrapper's cap is never passed); a 1,000-base read at widths
+    1,001 and 1,500, past the kernel's staged width; qlen past the width
+    (the last base read again, as the plain version's clamp reads it)."""
+    rng = np.random.default_rng(71)
+    ref = rng.integers(0, 4, 6000).astype(np.uint8)
+    out = {}
+    reads = [ref[100:100 + n].copy() for n in (0, 1, 2, 19, 20, 21, 40)]
+    q, ql = pad_batch(reads, 48)
+    out["short"] = dict(ref=ref, query=q, qlen=ql, min_intv=20, min_len=20)
+    reads = _mutated_slices(rng, ref, 10, 151, subs=2)
+    reads[0][30:45] = 4                              # a run of N
+    reads[1][-1] = 4                                 # an N at the last base
+    reads[2][0] = 4
+    reads[3][::10] = 4
+    reads[4][:] = 4
+    reads[5][-3:] = 4
+    reads[6][[20, 21, 60, 150]] = 4
+    q, ql = pad_batch(reads)
+    out["ambiguous"] = dict(ref=ref, query=q, qlen=ql, min_intv=20, min_len=20)
+    reads = _mutated_slices(rng, ref, 8, 151, subs=1)
+    q, ql = pad_batch(reads)
+    out["em3_overflow"] = dict(ref=ref, query=q, qlen=ql, min_intv=2, min_len=3, em3=4)
+    long_read = _mutated_slices(rng, ref, 1, 1000, subs=6) + _mutated_slices(rng, ref, 2, 151)
+    for width in (1001, 1500):
+        q, ql = pad_batch(long_read, width)
+        out[f"width{width}"] = dict(ref=ref, query=q, qlen=ql, min_intv=20, min_len=20)
+    q, ql = pad_batch(_mutated_slices(rng, ref, 4, 64), 64)
+    ql = ql + np.array([0, 1, 5, 40], np.int32)
+    out["qlen_past_width"] = dict(ref=ref, query=q, qlen=ql, min_intv=20, min_len=20)
+    return out

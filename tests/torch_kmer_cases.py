@@ -650,3 +650,27 @@ def runs_view_cases(seed=0):
     views += [(off, n) for off in (0, 4, 8, 12)
               for n in (4 * RUNS_CHUNK - 1, 4 * RUNS_CHUNK + 5, 2_880)]
     return buf, views
+
+
+# ------------------------------------------------------------------ sites
+def site_cases(seed=0):
+    """{label: (raw (B, L) int64, mask (B, L) bool, lengths (B,) int32,
+    offsets (B,) int64, k)} for the site build (gb_kmer_sites): rows of
+    width 1, 15, 17 and 4,097, one row of 20,000, no sites, every position
+    a site, and offsets past 2^33; each some 10,000 positions or more, the
+    masks about a third sites."""
+    rng = np.random.default_rng(seed)
+    cases = {}
+    for label, (B, L, k, density, base) in {
+            "width1": (9_000, 1, 15, 1 / 3, 0), "width15": (700, 15, 5, 1 / 3, 0),
+            "width17": (600, 17, 16, 1 / 3, 0), "width4097": (3, 4_097, 15, 1 / 3, 0),
+            "one_row": (1, 20_000, 15, 1 / 3, 0), "no_sites": (40, 300, 15, 0.0, 0),
+            "all_sites": (12, 1_000, 16, 1.0, 0),
+            "offsets_past_2_33": (50, 230, 15, 1 / 3, 1 << 33)}.items():
+        top = 1 << 32 if k == 16 else 1 << (2 * k)
+        raw = rng.integers(0, top, (B, L), dtype=np.int64)
+        mask = rng.random((B, L)) < density
+        lengths = rng.integers(0, L + 1, B).astype(np.int32)
+        offsets = base + np.concatenate([[0], np.cumsum(lengths[:-1], dtype=np.int64)])
+        cases[label] = (raw, mask, lengths, offsets.astype(np.int64), k)
+    return cases
