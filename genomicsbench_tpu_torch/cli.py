@@ -11,8 +11,8 @@ format.
 Subcommands: fmi, bsw, phmm, chain, poa, eventalign (event space, or
 reference coordinates with -b/-g, or event-space records with --sam),
 call-methylation (event space, or on the genome with -b/-g), kmer-cnt,
-nn-base, grm, and the host-only pileup, dbg, meth-freq, index and
-freq-merge.
+nn-base, nn-variant, grm, and the host-only pileup, dbg, meth-freq, index
+and freq-merge.
 """
 
 from __future__ import annotations
@@ -156,6 +156,31 @@ def cmd_nn_base(args):
         print(f"@{n}\n{s}\n+\n{q}")
     print(f"> completed reads: {len(names)}", file=sys.stderr)
     print(f"> samples per second {n_samples / dt:.1E}", file=sys.stderr)
+
+
+def cmd_nn_variant(args):
+    """prediction.py: h5 mini-batch inference of the Clair 2BiLSTM model
+    (prediction.py:70-116), as the JAX package's `cmd_nn_variant`
+    (genomicsbench_tpu/cli.py:462-482).  --chkpnt_fn is a TF V2 checkpoint
+    prefix (prediction.py:66 restore_parameters); without it the weights
+    are `init_params`' deterministic random init, which differs from the
+    JAX CLI's.  The four heads of each batch, concatenated, go to
+    --output_fn with write_batches; the time of the prediction loop to
+    stderr."""
+    from genomicsbench_tpu_torch.io.h5_batches import read_batches, write_batches
+    from genomicsbench_tpu_torch.models import variant_caller as vc
+
+    resolve_device(args.device)
+    cfg = vc.ClairConfig()
+    params = vc.load_tf_checkpoint(args.chkpnt_fn, cfg) if args.chkpnt_fn else vc.init_params(cfg)
+    model = vc.build_model(params, cfg, args.device)
+    batches = read_batches(args.input_fn)
+    t0 = time.perf_counter()
+    outs = vc.predict_batches(model, [x for x, _ in batches], device=args.device)
+    dt = time.perf_counter() - t0
+    if args.output_fn:
+        write_batches(args.output_fn, [np.concatenate(o, axis=1) for o in outs])
+    print(f"Time taken: {dt:.4f} s", file=sys.stderr)
 
 
 def cmd_bsw(args):
@@ -722,6 +747,18 @@ def build_parser():
     s.add_argument("--device", default="cuda",
                    help="cuda (default; cuda:N for card N; raises without a card) or cpu")
     s.set_defaults(fn=cmd_nn_base)
+
+    s = sub.add_parser("nn-variant", help="neural variant calling")
+    s.add_argument("--input_fn", required=True)
+    s.add_argument("--output_fn")
+    s.add_argument("--chkpnt_fn", help="TF V2 checkpoint prefix (Clair weights)")
+    # run-gpu.sh:31 parity (prediction.py flags; inference ignores them)
+    s.add_argument("--sampleName", default="SAMPLE")
+    s.add_argument("--threads", type=int, default=1)
+    s.add_argument("--qual", type=int, default=100)
+    s.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    s.set_defaults(fn=cmd_nn_variant)
 
     s = sub.add_parser("grm", help="genetic relationship matrix")
     s.add_argument("--bfile", help="plink1 bed/bim/fam prefix (or a .pgen beside it)")

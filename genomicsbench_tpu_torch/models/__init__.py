@@ -1,1 +1,2 @@
-"""Neural models: the CTC basecaller (nn-base)."""
+"""Neural models: the CTC basecaller (nn-base) and the Clair variant caller
+(nn-variant)."""

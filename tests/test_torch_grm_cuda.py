@@ -57,6 +57,22 @@ def test_standardize_and_finish_bit_for_bit(card, case):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("N", list(range(1, 10)) + list(range(127, 132)) + [255, 256, 257,
+                                                                            2_504])
+def test_finish_at_alignment_edges(card, N):
+    """gb_grm_finish against its plain version, bit for bit, at N whose rows
+    start at every residue of a 16-byte vector and across the 128-sample
+    padding, num and den at the padded width (den with zeros: max(den, 1))."""
+    Nb = -(-N // T.SAMPLE_PAD) * T.SAMPLE_PAD
+    gen = torch.Generator(device=card).manual_seed(N)
+    num = torch.randn(Nb, Nb, generator=gen, device=card) * 300.0
+    den = torch.randint(0, 100_001, (Nb, Nb), generator=gen, device=card).float()
+    den[torch.rand(Nb, Nb, generator=gen, device=card) < 0.01] = 0.0
+    got = T.grm_finish(num, den, N)
+    assert got.shape == (2, N * (N + 1) // 2)
+    assert torch.equal(_bits(got), _bits(T.grm_finish_reference(num, den, N)))
+
+
 @pytest.mark.parametrize("case", sorted(EDGES))
 def test_grm_on_card_matches_oracle(card, case):
     geno, maf = EDGES[case]

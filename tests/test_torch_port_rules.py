@@ -36,6 +36,9 @@
   banded NW wrappers refuse wrong dtypes, shapes, devices and contiguity, a
   band outside 1..8,192 and an end cell outside the band, before any
   launch.
+* The nn-variant entry points (predict_batches, build_model, the CLI)
+  raise without a card unless asked for the CPU, and its modules import no
+  JAX.
 * The device stages of pileup and dbg (`_count_keys`,
   `_build_window_graphs_sorted`, `build_window_graphs` and `dbg_from_bam`
   without as_arrays) raise without a card unless asked for the CPU;
@@ -91,6 +94,7 @@ PORT_FILES = sorted((ROOT / "genomicsbench_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "torch_grm_cases.py", ROOT / "tests" / "torch_longread_cases.py",
     ROOT / "tests" / "torch_pileup_cases.py", ROOT / "tests" / "torch_dbg_cases.py",
     ROOT / "tools" / "kmer_ab.py", ROOT / "tools" / "sites_seed3_ab.py",
+    ROOT / "tests" / "torch_variant_cases.py", ROOT / "tools" / "grm_finish_ab.py",
 ]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "genomicsbench_tpu")
 
@@ -1135,6 +1139,43 @@ def test_grm_and_longread_import_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_nn_variant_import_loads_no_jax():
+    code = ("import sys\n"
+            "import genomicsbench_tpu_torch.models.variant_caller, genomicsbench_tpu_torch.cli\n"
+            "import genomicsbench_tpu_torch.io.h5_batches\n"
+            "import genomicsbench_tpu_torch.io.tf_checkpoint\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'genomicsbench_tpu')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["predict_batches", "build_model", "cli"])
+def test_nn_variant_entry_points_raise_without_card(no_card, entry, tmp_path):
+    from genomicsbench_tpu_torch.io.h5_batches import write_batches
+    from genomicsbench_tpu_torch.models import variant_caller as vc
+
+    cfg = vc.ClairConfig.tiny()
+    state = vc.init_params(cfg)
+    x = np.random.default_rng(0).integers(0, 9, (2, 33, 8, 4)).astype(np.float32)
+    dev_kw = lambda dev: {"device": dev[0]} if dev else {}          # noqa: E731
+    if entry == "cli":
+        write_batches(str(tmp_path / "in.h5"), [x])
+    run = {
+        "predict_batches": lambda *dev: vc.predict_batches(state, [x], cfg, **dev_kw(dev)),
+        "build_model": lambda *dev: vc.build_model(state, cfg, **dev_kw(dev)),
+        "cli": lambda *dev: torch_cli_main(["nn-variant", "--input_fn", str(tmp_path / "in.h5")]
+                                           + (["--device", dev[0]] if dev else [])),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run("cuda:0")
+    run("cpu")
 
 
 @pytest.mark.parametrize("entry", ["grm", "banded_nw", "cli_pgen", "cli_bfile"])
