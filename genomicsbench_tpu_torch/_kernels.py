@@ -66,7 +66,10 @@ SOURCES = {
                    {"gb_bc_depthwise": [_P, _P, _L] + [_I] * 5 + [_P, _P],
                     "gb_bc_depthwise_layout": [_I, _I, _P],
                     "gb_bc_bn_act": [_P] * 4 + [_L, _I, _I, _P, _P],
-                    "gb_bc_head": [_P, _P, _L, _I, _I, _P, _P]}),
+                    "gb_bc_head": [_P, _P, _L, _I, _I, _P, _P],
+                    "gb_bc_depthwise_wgrad_scratch": [_L, _I, _I, _I, _P],
+                    "gb_bc_depthwise_wgrad": [_P, _P, _L, _I, _I, _I, _P, _L, _P, _P],
+                    "gb_bc_bn_act_bwd": [_P] * 5 + [_L, _I, _I, _P, _L] + [_P] * 4}),
     "grm": (CSRC / "grm.cu",
             {"gb_grm_standardize": [_P, _P, _L, _I, _P, _P, _P],
              "gb_grm_finish": [_P, _P, _I, _I, _P, _P]}),

@@ -1,9 +1,9 @@
 """QuartzNet-style CTC basecaller (the nn-base workload) in PyTorch.
 
-The port of genomicsbench_tpu/models/basecaller.py, inference only.  The
-architecture is the reference bonito model's (benchmarks/nn-base/bonito/
-basecall.py:74-255 and models/bonito_dna_r941/config.toml): a stride-3 entry
-conv, time-channel-separable conv blocks with BatchNorm, Swish and residual
+The port of genomicsbench_tpu/models/basecaller.py.  The architecture is
+the reference bonito model's (benchmarks/nn-base/bonito/basecall.py:74-255
+and models/bonito_dna_r941/config.toml): a stride-3 entry conv,
+time-channel-separable conv blocks with BatchNorm, Swish and residual
 connections, a wide final conv pair and a 1x1 decoder over the 5 CTC labels
 "NACGT".
 
@@ -29,7 +29,16 @@ C++ (native/ctc.cpp) is the decoder and whose Python loop is the plain
 version `beam_search_reference`.  `basecall_signals` and
 `basecall_with_quals` batch full-size chunks across reads.
 
-Training (`ctc_loss`, models/train.py) is not ported.
+Training: `run_network(..., train=True)` is JAX's `forward(train=True)`:
+every BatchNorm, the residual branch's included, on its batch statistics
+(no running statistics are kept or updated, as JAX reads none back), the
+weights under autograd, the depthwise convs and the epilogues through
+`ops.depthwise_conv_train` and `ops.bn_act_train` (their backwards are
+kernels too), the 1x1 and dense convs bf16 `torch.matmul` and cuDNN
+`conv1d` under autograd, the decoder's bf16 logits cast to f32 and
+`log_softmax`ed (:184-185; the head kernel writes float16 and stays the
+inference path).  `ctc_loss` is JAX's (:188-199) on `F.ctc_loss`;
+models/train.py has the trainer and the checkpoints.
 """
 
 from __future__ import annotations
@@ -100,12 +109,16 @@ def model_stride(cfg: BasecallerConfig) -> int:
 
 # ---------------------------------------------------------------- the network
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm's four vectors, named as the JAX package's dict."""
+    """A BatchNorm's four vectors, named as the JAX package's dict: scale and
+    bias parameters (trained), mean and var buffers (eval mode's running
+    statistics, which training leaves to the optimizer's decay alone)."""
 
     def __init__(self, c: int):
         super().__init__()
-        for name, fill in (("scale", 1.0), ("bias", 0.0), ("mean", 0.0), ("var", 1.0)):
-            self.register_buffer(name, torch.full((c,), fill, dtype=_F32))
+        self.scale = nn.Parameter(torch.ones(c), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(c), requires_grad=False)
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
 
     def rows(self) -> torch.Tensor:
         return ops.bn_params(self.scale, self.bias, self.mean, self.var)
@@ -152,34 +165,47 @@ class Basecaller(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.decoder = nn.Parameter(torch.zeros(cin, cfg.num_labels), requires_grad=False)
 
-    def prepare(self) -> dict:
+    def prepare(self, train: bool = False) -> dict:
         """The weights as the passes take them: bf16 conv weights (JAX's
         `w.astype(x.dtype)`), dense ones in conv1d's (F, C, k) layout, each
-        BatchNorm's (3, C) rows.  One set serves every batch of a call."""
+        BatchNorm's (3, C) rows.  One set serves every batch of a call.
+        With `train`, casts under autograd of the parameters themselves: the
+        depthwise taps stay f32 (`ops.depthwise_conv_train` casts them) and
+        each BatchNorm is its (scale, bias) parameters, its statistics the
+        batch's."""
+        with torch.set_grad_enabled(train):
+            return self._prepare(train)
+
+    def _prepare(self, train: bool) -> dict:
         blocks = []
         for blk in self.blocks:
             b = blk.cfg
             units = []
             for r in range(b.repeat):
-                u = dict(bn=blk.bns[r].rows())
+                bn = blk.bns[r]
+                u = dict(bn=(bn.scale, bn.bias) if train else bn.rows())
                 if b.separable:
-                    u["depth"] = blk.depth[r].to(_BF16).contiguous()
+                    u["depth"] = blk.depth[r] if train else blk.depth[r].to(_BF16).contiguous()
                     u["point"] = blk.point[r].to(_BF16).contiguous()
                 else:
                     u["full"] = blk.full[r].permute(2, 1, 0).to(_BF16).contiguous()
                 units.append(u)
-            res = ((blk.res_conv.to(_BF16).contiguous(), blk.res_bn.rows())
-                   if b.residual else None)
+            res = None
+            if b.residual:
+                rbn = blk.res_bn
+                res = (blk.res_conv.to(_BF16).contiguous(),
+                       (rbn.scale, rbn.bias) if train else rbn.rows())
             blocks.append((b, units, res))
-        return dict(blocks=blocks, decoder=self.decoder.to(_BF16).contiguous())
+        return dict(blocks=blocks, decoder=self.decoder.to(_BF16).contiguous(), train=train)
 
     def forward(self, x: torch.Tensor, out_dtype=_F32) -> torch.Tensor:
         return run_network(self.prepare(), x, out_dtype)
 
 
 @contextlib.contextmanager
-def _f32_reduction(dev: torch.device):
-    """cuBLAS reduces bf16 products in f32, as XLA does, while inside."""
+def f32_reduction(dev: torch.device):
+    """cuBLAS reduces bf16 products in f32, as XLA does, while inside: the
+    forward, and a train step's forward and backward, run in it."""
     if dev.type != "cuda":
         yield
         return
@@ -212,12 +238,30 @@ def _dense(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     return y.transpose(1, 2).contiguous()
 
 
-def run_block(entry, x: torch.Tensor, reference: bool = False) -> torch.Tensor:
-    """One config block of `prepare()["blocks"]` on x (B, T, C) bf16: the
-    JAX package's `forward` loop body (:166-183), its output bf16 (every
-    consumer casts the f32 activation to bf16 first)."""
-    depthwise, epilogue = ((ops.depthwise_conv_reference, ops.bn_act_reference) if reference
-                           else (ops.depthwise_conv, ops.bn_act))
+def _train_passes(reference: bool):
+    """The depthwise conv and the epilogue in train mode: the autograd
+    Functions, on the kernels or (reference) the plain versions."""
+    def depthwise(x, w, stride):
+        return ops.depthwise_conv_train(x, w, stride, reference)
+
+    def epilogue(y, bn, res=None, res_bn=(None, None)):
+        return ops.bn_act_train(y, *bn, res, *res_bn, reference=reference)
+
+    return depthwise, epilogue
+
+
+def run_block(entry, x: torch.Tensor, reference: bool = False,
+              train: bool = False) -> torch.Tensor:
+    """One config block of `prepare(train)["blocks"]` on x (B, T, C) bf16:
+    the JAX package's `forward` loop body (:166-183), its output bf16 (every
+    consumer casts the f32 activation to bf16 first).  `train` takes the
+    batch statistics and keeps the graph for autograd."""
+    if train:
+        depthwise, epilogue = _train_passes(reference)
+    elif reference:
+        depthwise, epilogue = ops.depthwise_conv_reference, ops.bn_act_reference
+    else:
+        depthwise, epilogue = ops.depthwise_conv, ops.bn_act
     b, units, res = entry
     inp = x
     for r, u in enumerate(units):
@@ -233,19 +277,56 @@ def run_block(entry, x: torch.Tensor, reference: bool = False) -> torch.Tensor:
     return x
 
 
-def run_network(prep: dict, x: torch.Tensor, out_dtype=_F32, reference: bool = False):
-    """The forward pass over `prepare()`'s weights: x (B, T) or (B, T, C)
-    -> (B, T', L) log-probs in out_dtype.  reference=True takes the plain
-    versions of the three kernels on any device (the card's check of the
-    kernels' forward)."""
+def run_network(prep: dict, x: torch.Tensor, out_dtype=_F32, reference: bool = False,
+                train: bool = False):
+    """The forward pass over `prepare(train)`'s weights: x (B, T) or (B, T,
+    C) -> (B, T', L) log-probs in out_dtype.  reference=True takes the plain
+    versions of the kernels on any device (the card's check of the kernels).
+    train=True is JAX's `forward(train=True)` under autograd: batch
+    statistics, and the decoder's bf16 logits cast to f32 and
+    `log_softmax`ed by torch (float32 log-probs; out_dtype is not read).  Its
+    backward runs outside this call: `f32_reduction` keeps cuBLAS's bf16
+    sums in f32 there too."""
+    if train and not prep.get("train"):
+        raise ValueError("train mode needs prepare(train=True)'s weights")
     if x.dim() == 2:
         x = x[:, :, None]
     x = x.to(_BF16).contiguous()
-    with _f32_reduction(x.device):
+    with f32_reduction(x.device):
         for entry in prep["blocks"]:
-            x = run_block(entry, x, reference)
+            x = run_block(entry, x, reference, train)
+        if train:
+            return torch.log_softmax(_pointwise(x, prep["decoder"]).float(), dim=-1)
         head = ops.decoder_head_reference if reference else ops.decoder_head
         return head(x, prep["decoder"], out_dtype)
+
+
+def ctc_loss_from_logp(logp: torch.Tensor, labels: torch.Tensor,
+                       label_lens: torch.Tensor) -> torch.Tensor:
+    """The mean over the batch of the per-sequence CTC loss of (B, T', L)
+    f32 log-probs: blank 0, every frame used, labels (B, S) with 0 padding
+    past `label_lens`.  JAX takes the mean of optax's per-sequence losses
+    (:198-199); `reduction="mean"` would divide by the label lengths first.
+    An impossible alignment (more labels, with their repeats' blanks, than
+    frames) gives inf, where optax floors it at log_epsilon and returns a
+    large finite loss."""
+    B, T, _ = logp.shape
+    lens = torch.as_tensor(label_lens, device=logp.device).long()
+    frames = torch.full((B,), T, dtype=torch.long, device=logp.device)
+    per_seq = torch.nn.functional.ctc_loss(
+        logp.transpose(0, 1), torch.as_tensor(labels, device=logp.device).long(), frames, lens,
+        blank=0, reduction="none", zero_infinity=False)
+    return per_seq.mean()
+
+
+def ctc_loss(model: "Basecaller", signal, labels, label_lens, reference: bool = False):
+    """JAX's `ctc_loss(params, signal, labels, label_lens, cfg, train=True)`
+    (:188-199): the train-mode forward of `model` on signal (B, T) or (B,
+    T, C), then `ctc_loss_from_logp`.  A scalar tensor under autograd."""
+    dev = next(model.parameters()).device
+    x = torch.as_tensor(signal, dtype=_F32).to(dev)
+    logp = run_network(model.prepare(train=True), x, train=True, reference=reference)
+    return ctc_loss_from_logp(logp, labels, label_lens)
 
 
 # ------------------------------------------------------------------ weights

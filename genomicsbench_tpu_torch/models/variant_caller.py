@@ -1,8 +1,7 @@
 """Clair-style neural variant caller (the nn-variant workload) in PyTorch.
 
-The port of genomicsbench_tpu/models/variant_caller.py, inference only.
-The architecture is Clair's "2BiLSTM" (benchmarks/nn-variant/clair/
-model.py:400-620):
+The port of genomicsbench_tpu/models/variant_caller.py.  The architecture
+is Clair's "2BiLSTM" (benchmarks/nn-variant/clair/model.py:400-620):
 
   input  X (B, 33, 8, 4)   33 = 2 * flankingBaseNum + 1 positions, 8 count
                            rows (ACGTacgt), 4 channels (shared/param.py:9-11)
@@ -58,8 +57,15 @@ slabs of 65,536 samples, one fetch, split per batch and head.  The slabs
 are not padded to a power of two as JAX pads them for its compile cache:
 rows are independent.
 
-Not ported: `predict_sharded` (the mesh path) and training (`focal_loss`,
-`clair_loss`, `make_train_step`).
+Training (:377-442): `focal_loss`, `clair_loss` (the four heads' focal
+losses on the SELU'd logits of `ClairNet.logits`, task weights 1, plus
+0.005 times the sum of squares of every JAX leaf) and `make_train_step`
+(`torch.optim.Adam(1e-3)`, optax's `adam`), the gradients through
+`nn.LSTM` inside `full_f32()`.  The LSTMs' `bias_hh` stays frozen at zero,
+outside the optimizer and the L2 sum: JAX has one bias per LSTM, and a
+trained second one would move the effective bias twice as fast.
+
+Not ported: `predict_sharded` (the mesh path).
 """
 
 from __future__ import annotations
@@ -73,6 +79,7 @@ import torch
 from torch import nn
 
 from genomicsbench_tpu_torch import resolve_device
+from genomicsbench_tpu_torch.models import StepTimer
 
 # Label counts: clair/task/gt21.py (21), genotype.py (3),
 # variant_length.py (2 * 16 + 1 = 33 each).
@@ -173,6 +180,12 @@ class ClairNet(nn.Module):
         """reference=True runs each LSTM layer step by step
         (`bilstm_reference`) instead of nn.LSTM; float64 weights and inputs
         give a float64 forward."""
+        # SELU on the logits, then softmax: model.py:581-620
+        return {name: torch.softmax(v, dim=-1) for name, v in self.logits(x, reference).items()}
+
+    def logits(self, x: torch.Tensor, reference: bool = False) -> dict:
+        """{head name: (B, classes)} SELU'd logits before the softmax (JAX's
+        `_forward_logits`, :392-407)."""
         cfg = self.cfg
         dt = self.l3_w.dtype
         b = x.shape[0]
@@ -182,11 +195,8 @@ class ClairNet(nn.Module):
         # L3 slice-dense over channels: out[b, u, c] = selu(sum_t h[b, t, c] W[c, t, u])
         l3 = torch.selu(torch.einsum("btc,ctu->buc", h, self.l3_w) + self.l3_b.T[None])
         l4 = torch.selu(self.l4(l3.reshape(b, -1)))   # row-major (u, c), as the reference
-        out = {}
-        for name in HEAD_NAMES:
-            logits = torch.selu(self.heads[name](torch.selu(self.l5[name](l4))))
-            out[name] = torch.softmax(logits, dim=-1)  # SELU on logits: model.py:581-620
-        return out
+        return {name: torch.selu(self.heads[name](torch.selu(self.l5[name](l4))))
+                for name in HEAD_NAMES}
 
     def packed(self, x: torch.Tensor, reference: bool = False) -> torch.Tensor:
         y = self.forward(x, reference)
@@ -479,3 +489,86 @@ def predict_batches(params, batches, cfg: ClairConfig | None = None, device="cud
         off += s
     lap("fetch_split")
     return outs
+
+
+# ---------------------------------------------------------------- training
+# (reference: clair/model.py: default_loss_function "FocalLoss" param.py:29,
+# focal_loss model.py:783-805, task weights model.py:64-70, Adam at 1e-3
+# param.py:17-28, L2 lambda 0.005 param.py:23; JAX :377-442)
+def focal_loss(logits: torch.Tensor, target: torch.Tensor, gamma: float = 2.0) -> torch.Tensor:
+    """The reference's formula (model.py:783-805), summed over every entry:
+    -((z - p)^g log(clip(p)) where z > 0, p^g log(clip(1 - p)) where z = 0),
+    p the softmax of the logits, clipped to [1e-8, 1]."""
+    p = torch.softmax(logits, dim=-1)
+    pos = torch.where(target > 0, target - p, torch.zeros_like(p))
+    neg = torch.where(target > 0, torch.zeros_like(p), p)
+    ent = -(pos ** gamma * torch.log(torch.clamp(p, 1e-8, 1.0))
+            + neg ** gamma * torch.log(torch.clamp(1.0 - p, 1e-8, 1.0)))
+    return ent.sum()
+
+
+def trained_tensors(model: ClairNet) -> list:
+    """The tensors training moves, in state-dict order: every one of the
+    JAX layout, so every one but the LSTMs' bias_hh (held at zero)."""
+    return [v for k, v in model.state_dict(keep_vars=True).items() if ".bias_hh_" not in k]
+
+
+def clair_loss(model: ClairNet, x: torch.Tensor, labels: torch.Tensor,
+               task_weights=(1.0, 1.0, 1.0, 1.0), l2_lambda: float = 0.005,
+               reference: bool = False) -> torch.Tensor:
+    """JAX's `clair_loss` (:410-421): each head's focal loss against its
+    slice of the one-hot labels (B, sum(head_sizes)), weighted and summed,
+    plus l2_lambda times the sum of squares of every trained tensor.  Run it
+    inside `full_f32()` on the card."""
+    logits = model.logits(x, reference)
+    parts = torch.split(labels, list(model.cfg.head_sizes), dim=1)
+    loss = 0.0
+    for w, name, tgt in zip(task_weights, HEAD_NAMES, parts):
+        loss = loss + w * focal_loss(logits[name], tgt)
+    l2 = sum((t ** 2).sum() for t in trained_tensors(model))
+    return loss + l2_lambda * l2
+
+
+def make_train_step(cfg: ClairConfig = ClairConfig(), device="cuda",
+                    learning_rate: float = 1e-3):
+    """(init, train_step) for Clair on one device ("cuda" unless the caller
+    asks for "cpu"; raises without a card), as JAX's `make_train_step`
+    (:424-442): optax's `adam` is `torch.optim.Adam` (b1 0.9, b2 0.999, eps
+    1e-8, no decay).
+
+    `init(params=None, opt_state=None)` -> (model, optimizer): a ClairNet on
+    the device from a state dict (`init_params(cfg)` when None), every
+    tensor of the JAX layout trained (bias_hh stays frozen at zero), and its
+    Adam, restored from `opt_state` where given.
+    `train_step(model, optimizer, x, labels, stats=None)` -> (model,
+    optimizer, loss): one step in place inside `full_f32()`, the loss a
+    detached scalar; with `stats`, a dict, each stage's seconds (waited
+    for) added under forward, backward and optimizer."""
+    dev = resolve_device(device)
+
+    def init(params=None, opt_state=None):
+        model = ClairNet(cfg)
+        model.load_state_dict(init_params(cfg) if params is None else params)
+        model = model.to(dev)
+        for t in trained_tensors(model):
+            t.requires_grad_(True)
+        opt = torch.optim.Adam(trained_tensors(model), lr=learning_rate)
+        if opt_state is not None:
+            opt.load_state_dict(opt_state)
+        return model, opt
+
+    def train_step(model, opt, x, labels, stats=None):
+        timer = StepTimer(stats, dev)
+        opt.zero_grad(set_to_none=True)
+        x = torch.as_tensor(x).to(dev)
+        labels = torch.as_tensor(labels, dtype=_F32).to(dev)
+        with full_f32():
+            loss = clair_loss(model, x, labels)
+            timer.lap("forward")
+            loss.backward()
+            timer.lap("backward")
+            opt.step()
+        timer.lap("optimizer")
+        return model, opt, loss.detach()
+
+    return init, train_step

@@ -31,15 +31,34 @@ PyTorch version beside it, which rounds where the kernel rounds.
 `bn_params` turns a BatchNorm's (scale, bias, mean, var) into the (3, C)
 rows (mean, factor, bias) the epilogue takes, factor = 1 / sqrt(var + eps) *
 scale, as `_bn` forms `rsqrt(var + eps) * scale`.
+
+Training (models/train.py) runs two of them under autograd, with backward
+passes that are kernels too:
+* `depthwise_conv_train`: the conv on the bf16 cast of an f32 weight.  Its
+  input gradient is gb_bc_depthwise on the reversed taps (stride 1 and odd
+  k, where k - 1 - k // 2 == k // 2), its weight gradient
+  gb_bc_depthwise_wgrad (`depthwise_wgrad`): the f32 sums over (b, t) of x
+  times the output gradient, by per-block partials and a fixed-order sum
+  (two runs give the same bits), rounded once to bf16 as JAX's bf16 conv
+  rounds its cotangent.  The card refuses other strides and even k with
+  ValueError; the plain versions take any shape.
+* `bn_act_train`: the epilogue on batch statistics (`bn_train_rows`: the
+  population mean and variance of the f32 view, JAX's `_bn(train=True)`),
+  its backward gb_bc_bn_act_bwd (`bn_act_bwd`): the statistics' share
+  included, column sums by per-block partials and a fixed-order sum, then
+  dx (and the residual's dres) as bf16.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from genomicsbench_tpu_torch._kernels import check_device as _check_device
 from genomicsbench_tpu_torch._kernels import check_tensor as _check
 from genomicsbench_tpu_torch._kernels import launch as _launch
+from genomicsbench_tpu_torch._kernels import load as _load
 
 _BF16, _F32, _F16 = torch.bfloat16, torch.float32, torch.float16
 BN_EPS = 1e-5
@@ -256,3 +275,294 @@ def decoder_head(x: torch.Tensor, w: torch.Tensor, out_dtype=_F16) -> torch.Tens
 
 
 decoder_head.launches = 0
+
+
+# ------------------------------------------------------------------ training
+# The train step's passes (models/train.py): the depthwise conv and the
+# train-mode epilogue as autograd Functions whose backwards are kernels too.
+# JAX differentiates its XLA convs itself (models/basecaller.py:135-186), so
+# these replace no TPU kernel; the port needs them because its forwards are
+# hand-written and autograd cannot see through a ctypes launch.
+BN_BWD_ROWS = 256               # gb_bc_bn_act_bwd: rows a partial sum covers
+BN_BWD_MAX_ROWS = 1 << 24       # N as f32 is exact, and the partials fit one grid
+
+
+def _check_aligned(*tensors) -> None:
+    for t in tensors:
+        if t is not None and t.device.type == "cuda" and t.data_ptr() % 4:
+            raise ValueError("the backward kernels read bf16 pairs: every tensor must start "
+                             "4-byte aligned")
+
+
+def _check_train_depthwise(k: int, stride: int) -> None:
+    """The card's backward takes stride 1 and odd k only: the input gradient
+    is then the conv of the output gradient with the taps reversed (k - 1 -
+    k // 2 == k // 2), and the output has the input's T frames."""
+    if stride != 1 or k % 2 == 0:
+        raise ValueError(f"the depthwise conv's backward on the card takes stride 1 and an odd "
+                         f"k, got stride {stride}, k {k}")
+
+
+def depthwise_input_grad_reference(gy: torch.Tensor, w: torch.Tensor, T: int,
+                                   stride: int = 1) -> torch.Tensor:
+    """The plain version of the depthwise conv's input gradient: (B, T, C)
+    bf16 from the (B, T_out, C) bf16 output gradient through the (k, C) bf16
+    taps.  At stride 1 and odd k it is `depthwise_conv_reference` of gy on
+    the reversed taps, the kernel's own order (bit for bit with the card);
+    at any other shape each tap's products are scattered back in increasing
+    tap order in f32 and rounded once, as JAX's conv transpose takes any."""
+    k = w.shape[0]
+    if stride == 1 and k % 2:
+        return depthwise_conv_reference(gy, w.flip(0).contiguous())
+    B, T_out, C = gy.shape
+    p = k // 2
+    acc = torch.zeros(B, T + 2 * p, C, dtype=_F32, device=gy.device)
+    gf, wf = gy.float(), w.float()
+    if T_out:
+        for j in range(k):
+            acc[:, j:j + (T_out - 1) * stride + 1:stride] += gf * wf[j]
+    return acc[:, p:p + T].to(_BF16)
+
+
+def depthwise_input_grad(gy: torch.Tensor, w: torch.Tensor, T: int,
+                         stride: int = 1) -> torch.Tensor:
+    """The depthwise conv's input gradient, (B, T, C) bf16.  CUDA tensors:
+    one gb_bc_depthwise launch on the reversed taps (stride 1 and odd k
+    only, else ValueError before any launch); CPU tensors the plain version
+    at any shape."""
+    if gy.device.type == "cpu":
+        return depthwise_input_grad_reference(gy, w, T, stride)
+    _check_train_depthwise(w.shape[0], stride)
+    if gy.shape[1] != T:
+        raise ValueError(f"the output gradient has {gy.shape[1]} frames, the input {T}")
+    return depthwise_conv(gy, w.flip(0).contiguous())
+
+
+def depthwise_wgrad_reference(x: torch.Tensor, gy: torch.Tensor, k: int,
+                              stride: int = 1) -> torch.Tensor:
+    """The plain version of gb_bc_depthwise_wgrad: dw (k, C), for each tap
+    the f32 sum over (b, t) of x[b, t * stride + j - k // 2, c] * gy[b, t, c]
+    (zero past both ends), rounded once to bf16 and returned as f32, as the
+    JAX package's bf16 conv gives a bf16 cotangent that `astype` carries
+    back to the f32 weight.  The products are exact in f32; the sums run in
+    torch's order, not the kernel's."""
+    B, T, C = x.shape
+    p = k // 2
+    T_out = gy.shape[1]
+    xp = torch.nn.functional.pad(x.float(), (0, 0, p, p))
+    gf = gy.float()
+    dw = torch.zeros(k, C, dtype=_F32, device=x.device)
+    if T_out:
+        for j in range(k):
+            dw[j] = (xp[:, j:j + (T_out - 1) * stride + 1:stride] * gf).sum((0, 1))
+    return dw.to(_BF16).float()
+
+
+def _check_wgrad(x, gy, k):
+    _check("x", x, _BF16, 3)
+    _check("gy", gy, _BF16, 3)
+    _check_device(x.device, gy)
+    if x.shape[2] % 2:
+        raise ValueError(f"the depthwise conv takes an even channel count, got {x.shape[2]}")
+    if k < 1:
+        raise ValueError(f"k must be positive, got {k}")
+
+
+def depthwise_wgrad(x: torch.Tensor, gy: torch.Tensor, k: int, stride: int = 1) -> torch.Tensor:
+    """The depthwise conv's weight gradient, (k, C) f32 of bf16 values, from
+    its input x (B, T, C) bf16 and output gradient gy (B, T_out, C) bf16.
+    CUDA tensors: one gb_bc_depthwise_wgrad call (per-block partial sums
+    into a scratch buffer, then their sum in a fixed order: two runs give
+    the same bits), stride 1 and odd k only, else ValueError before any
+    launch; CPU tensors the plain version at any shape."""
+    if x.device.type != "cpu":
+        _check_train_depthwise(k, stride)
+    _check_wgrad(x, gy, k)
+    if x.device.type == "cpu":
+        return depthwise_wgrad_reference(x, gy, k, stride)
+    if gy.shape != x.shape:
+        raise ValueError(f"gy has shape {tuple(gy.shape)}, x {tuple(x.shape)}")
+    _check_aligned(x, gy)
+    B, T, C = x.shape
+    out = torch.empty(k, C, dtype=_F32, device=x.device)
+    floats = ctypes.c_int64(0)
+    err = _load().gb_bc_depthwise_wgrad_scratch(B, T, C, k, ctypes.byref(floats))
+    if err:
+        raise RuntimeError(f"gb_bc_depthwise_wgrad_scratch failed with cudaError {err}")
+    part = torch.empty(max(floats.value, 1), dtype=_F32, device=x.device)
+    _launch(x.device, "gb_bc_depthwise_wgrad", x.data_ptr(), gy.data_ptr(), B, T, C, k,
+            part.data_ptr(), floats.value, out.data_ptr())
+    depthwise_wgrad.launches += 1
+    return out
+
+
+depthwise_wgrad.launches = 0
+
+
+class _DepthwiseConvFn(torch.autograd.Function):
+    """`depthwise_conv` on the bf16 cast of an f32 weight (JAX's
+    `w.astype(x.dtype)`), with the two gradients above."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, reference):
+        wb = w.to(_BF16).contiguous()
+        ctx.save_for_backward(x, wb)
+        ctx.stride, ctx.reference, ctx.T = stride, reference, x.shape[1]
+        return (depthwise_conv_reference if reference else depthwise_conv)(x, wb, stride)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, wb = ctx.saved_tensors
+        gy = gy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (depthwise_input_grad_reference if ctx.reference else depthwise_input_grad)(
+                gy, wb, ctx.T, ctx.stride)
+        if ctx.needs_input_grad[1]:
+            dw = (depthwise_wgrad_reference if ctx.reference else depthwise_wgrad)(
+                x, gy, wb.shape[0], ctx.stride)
+        return dx, dw, None, None
+
+
+def depthwise_conv_train(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                         reference: bool = False) -> torch.Tensor:
+    """The depthwise conv under autograd: x (B, T, C) bf16, w (k, C) f32 (a
+    trained weight, cast to bf16 inside).  CUDA tensors run the kernels
+    forward and backward, at stride 1 and odd k only (ValueError before any
+    launch); `reference` takes the plain versions on any device."""
+    if x.device.type != "cpu" and not reference:
+        _check_train_depthwise(w.shape[0], stride)
+    return _DepthwiseConvFn.apply(x, w, stride, reference)
+
+
+def bn_train_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  eps: float = BN_EPS) -> torch.Tensor:
+    """The batch statistics of x (..., C) bf16 over every row, from its f32
+    view, the variance a population one (JAX's `jnp.mean` and `jnp.var` over
+    (B, T) in `_bn(train=True)`, :144-151), as (4, C) f32 rows mean, factor,
+    bias, inv with inv = 1 / sqrt(var + eps) and factor = inv * scale; the
+    first three are `bn_act`'s rows."""
+    var, mean = torch.var_mean(x.reshape(-1, x.shape[-1]).float(), dim=0, correction=0)
+    inv = 1.0 / torch.sqrt(var + eps)
+    return torch.stack([mean, inv * scale.float(), bias.float(), inv]).contiguous()
+
+
+def _check_bn_bwd(x, dout, p, res, res_p):
+    _check_bn_act(x, p[:3], res, None if res_p is None else res_p[:3])
+    for name, rows in (("bn", p), ("res_bn", res_p)):
+        if rows is not None and tuple(rows.shape) != (4, x.shape[-1]):
+            raise ValueError(f"{name} must have shape (4, {x.shape[-1]}), got "
+                             f"{tuple(rows.shape)}")
+    _check("dout", dout, _BF16, x.dim())
+    if dout.shape != x.shape:
+        raise ValueError(f"dout has shape {tuple(dout.shape)}, x {tuple(x.shape)}")
+    _check_device(x.device, dout)
+
+
+def _means(sums: torch.Tensor, n: int) -> torch.Tensor:
+    # a tensor divisor: torch on the card multiplies by the reciprocal of a
+    # scalar one, where the kernel divides
+    return sums / torch.full_like(sums, float(n))
+
+
+def bn_act_bwd_reference(x, dout, p, res=None, res_p=None, swish: bool = True):
+    """The plain version of gb_bc_bn_act_bwd, one torch op per rounding:
+    (dx, dres or None, sums), sums (2 or 3, C) f32 = sum g, sum g * xhat and
+    with res sum g * rhat, where g = dout * swish'(y) (dout without Swish), y
+    the forward's pre-Swish value recomputed, xhat = (x - mean) * inv; dx =
+    factor * ((g - mean g) - xhat * mean(g * xhat)) as bf16, dres likewise
+    with the residual's rows.  p and res_p the (4, C) rows of
+    `bn_train_rows`."""
+    C = x.shape[-1]
+    xf = x.reshape(-1, C).float()
+    y = (xf - p[0]) * p[1] + p[2]
+    if res is not None:
+        rf = res.reshape(-1, C).float()
+        y = y + ((rf - res_p[0]) * res_p[1] + res_p[2])
+    g = dout.reshape(-1, C).float()
+    if swish:
+        s = torch.sigmoid(y)
+        g = g * (s * (1 + y * (1 - s)))
+    xh = (xf - p[0]) * p[3]
+    parts = [g.sum(0), (g * xh).sum(0)]
+    if res is not None:
+        rh = (rf - res_p[0]) * res_p[3]
+        parts.append((g * rh).sum(0))
+    sums = torch.stack(parts)
+    mean = _means(sums, xf.shape[0])
+    gc = g - mean[0]
+    dx = (p[1] * (gc - xh * mean[1])).to(_BF16).reshape(x.shape)
+    dres = None
+    if res is not None:
+        dres = (res_p[1] * (gc - rh * mean[2])).to(_BF16).reshape(x.shape)
+    return dx, dres, sums
+
+
+def bn_act_bwd(x: torch.Tensor, dout: torch.Tensor, p: torch.Tensor,
+               res: torch.Tensor | None = None, res_p: torch.Tensor | None = None,
+               swish: bool = True):
+    """The train-mode epilogue's backward, the statistics' share included:
+    (dx, dres or None, sums) as `bn_act_bwd_reference` gives them.  CUDA
+    tensors: one gb_bc_bn_act_bwd call (column sums by per-block partials
+    and a fixed-order final sum, no float atomics, then the apply pass);
+    CPU tensors the plain version."""
+    _check_bn_bwd(x, dout, p, res, res_p)
+    if x.device.type == "cpu":
+        return bn_act_bwd_reference(x, dout, p, res, res_p, swish)
+    _check_aligned(x, dout, res)
+    C = x.shape[-1]
+    N = x.numel() // C if C else 0
+    if N >= BN_BWD_MAX_ROWS:
+        raise ValueError(f"the backward epilogue takes fewer than {BN_BWD_MAX_ROWS} rows, got {N}")
+    nsum = 2 if res is None else 3
+    sums = torch.zeros(nsum, C, dtype=_F32, device=x.device)
+    dx = torch.empty_like(x)
+    dres = None if res is None else torch.empty_like(res)
+    if N and C:
+        part = torch.empty(-(-N // BN_BWD_ROWS) * nsum * C, dtype=_F32, device=x.device)
+        _launch(x.device, "gb_bc_bn_act_bwd", x.data_ptr(), dout.data_ptr(),
+                None if res is None else res.data_ptr(), p.data_ptr(),
+                None if res_p is None else res_p.data_ptr(), N, C, int(bool(swish)),
+                part.data_ptr(), part.numel(), sums.data_ptr(), dx.data_ptr(),
+                None if dres is None else dres.data_ptr())
+        bn_act_bwd.launches += 1
+    return dx, dres, sums
+
+
+bn_act_bwd.launches = 0
+
+
+class _BnActTrainFn(torch.autograd.Function):
+    """`bn_act` on batch statistics, with `bn_act_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, res, res_scale, res_bias, swish, reference):
+        p = bn_train_rows(x, scale, bias)
+        rp = None if res is None else bn_train_rows(res, res_scale, res_bias)
+        out = (bn_act_reference if reference else bn_act)(
+            x, p[:3], res, None if rp is None else rp[:3], swish)
+        ctx.save_for_backward(x, p, res, rp)
+        ctx.swish, ctx.reference = swish, reference
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, p, res, rp = ctx.saved_tensors
+        bwd = bn_act_bwd_reference if ctx.reference else bn_act_bwd
+        dx, dres, sums = bwd(x, dout.contiguous(), p, res, rp, ctx.swish)
+        if res is None:
+            return dx, sums[1], sums[0], None, None, None, None, None
+        return dx, sums[1], sums[0], dres, sums[2], sums[0].clone(), None, None
+
+
+def bn_act_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 res: torch.Tensor | None = None, res_scale: torch.Tensor | None = None,
+                 res_bias: torch.Tensor | None = None, swish: bool = True,
+                 reference: bool = False) -> torch.Tensor:
+    """JAX's `_bn(x, p, train=True)` (:144-151), optionally plus the residual
+    branch's own train-mode BatchNorm, optionally `_swish`, as bf16, under
+    autograd: x (and res) (..., C) bf16, scale and bias (C,) f32.  No running
+    statistics are kept (JAX reads none back).  CUDA tensors run
+    gb_bc_bn_act forward and gb_bc_bn_act_bwd backward; CPU tensors, or
+    `reference`, the plain versions."""
+    return _BnActTrainFn.apply(x, scale, bias, res, res_scale, res_bias, swish, reference)

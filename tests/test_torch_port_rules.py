@@ -39,6 +39,9 @@
 * The nn-variant entry points (predict_batches, build_model, the CLI)
   raise without a card unless asked for the CPU, and its modules import no
   JAX.
+* Both trainers' make_train_step (models/train.py, models/variant_caller.py)
+  raise without a card unless asked for the CPU; models/train.py imports no
+  JAX, optax or orbax.
 * The device stages of pileup and dbg (`_count_keys`,
   `_build_window_graphs_sorted`, `build_window_graphs` and `dbg_from_bam`
   without as_arrays) raise without a card unless asked for the CPU;
@@ -95,6 +98,8 @@ PORT_FILES = sorted((ROOT / "genomicsbench_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "torch_pileup_cases.py", ROOT / "tests" / "torch_dbg_cases.py",
     ROOT / "tools" / "kmer_ab.py", ROOT / "tools" / "sites_seed3_ab.py",
     ROOT / "tests" / "torch_variant_cases.py", ROOT / "tools" / "grm_finish_ab.py",
+    ROOT / "tests" / "torch_train_cases.py", ROOT / "tests" / "test_torch_train_cuda.py",
+    ROOT / "tools" / "train_kernels_ab.py",
 ]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "genomicsbench_tpu")
 
@@ -1152,6 +1157,35 @@ def test_nn_variant_import_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_train_import_loads_no_jax():
+    code = ("import sys\n"
+            "import genomicsbench_tpu_torch.models.train\n"
+            "import genomicsbench_tpu_torch.models.variant_caller\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'genomicsbench_tpu', 'optax', 'orbax')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("model", ["basecaller", "clair"])
+def test_train_steps_raise_without_card(no_card, model):
+    from genomicsbench_tpu_torch.models import train as tr
+    from genomicsbench_tpu_torch.models import basecaller as bc
+    from genomicsbench_tpu_torch.models import variant_caller as vc
+
+    make = {"basecaller": lambda *dev: tr.make_train_step(bc.BasecallerConfig.tiny(), *dev),
+            "clair": lambda *dev: vc.make_train_step(vc.ClairConfig.tiny(), *dev)}[model]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make("cuda:0")
+    init, _ = make("cpu")
+    model_, opt = init()
+    assert next(model_.parameters()).device.type == "cpu"
 
 
 @pytest.mark.parametrize("entry", ["predict_batches", "build_model", "cli"])
