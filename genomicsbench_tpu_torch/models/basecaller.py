@@ -238,26 +238,28 @@ def _dense(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     return y.transpose(1, 2).contiguous()
 
 
-def _train_passes(reference: bool):
+def _train_passes(reference: bool, group=None):
     """The depthwise conv and the epilogue in train mode: the autograd
-    Functions, on the kernels or (reference) the plain versions."""
+    Functions, on the kernels or (reference) the plain versions; the
+    epilogue's statistics over `group`'s ranks where given."""
     def depthwise(x, w, stride):
         return ops.depthwise_conv_train(x, w, stride, reference)
 
     def epilogue(y, bn, res=None, res_bn=(None, None)):
-        return ops.bn_act_train(y, *bn, res, *res_bn, reference=reference)
+        return ops.bn_act_train(y, *bn, res, *res_bn, reference=reference, group=group)
 
     return depthwise, epilogue
 
 
 def run_block(entry, x: torch.Tensor, reference: bool = False,
-              train: bool = False) -> torch.Tensor:
+              train: bool = False, group=None) -> torch.Tensor:
     """One config block of `prepare(train)["blocks"]` on x (B, T, C) bf16:
     the JAX package's `forward` loop body (:166-183), its output bf16 (every
     consumer casts the f32 activation to bf16 first).  `train` takes the
-    batch statistics and keeps the graph for autograd."""
+    batch statistics (over `group`'s ranks, an `ops.BatchGroup`, where
+    given) and keeps the graph for autograd."""
     if train:
-        depthwise, epilogue = _train_passes(reference)
+        depthwise, epilogue = _train_passes(reference, group)
     elif reference:
         depthwise, epilogue = ops.depthwise_conv_reference, ops.bn_act_reference
     else:
@@ -278,7 +280,7 @@ def run_block(entry, x: torch.Tensor, reference: bool = False,
 
 
 def run_network(prep: dict, x: torch.Tensor, out_dtype=_F32, reference: bool = False,
-                train: bool = False):
+                train: bool = False, group=None):
     """The forward pass over `prepare(train)`'s weights: x (B, T) or (B, T,
     C) -> (B, T', L) log-probs in out_dtype.  reference=True takes the plain
     versions of the kernels on any device (the card's check of the kernels).
@@ -286,7 +288,8 @@ def run_network(prep: dict, x: torch.Tensor, out_dtype=_F32, reference: bool = F
     statistics, and the decoder's bf16 logits cast to f32 and
     `log_softmax`ed by torch (float32 log-probs; out_dtype is not read).  Its
     backward runs outside this call: `f32_reduction` keeps cuBLAS's bf16
-    sums in f32 there too."""
+    sums in f32 there too.  `group`, an `ops.BatchGroup`: train mode's
+    statistics over every rank's rows (the data-parallel step)."""
     if train and not prep.get("train"):
         raise ValueError("train mode needs prepare(train=True)'s weights")
     if x.dim() == 2:
@@ -294,7 +297,7 @@ def run_network(prep: dict, x: torch.Tensor, out_dtype=_F32, reference: bool = F
     x = x.to(_BF16).contiguous()
     with f32_reduction(x.device):
         for entry in prep["blocks"]:
-            x = run_block(entry, x, reference, train)
+            x = run_block(entry, x, reference, train, group)
         if train:
             return torch.log_softmax(_pointwise(x, prep["decoder"]).float(), dim=-1)
         head = ops.decoder_head_reference if reference else ops.decoder_head
@@ -319,13 +322,17 @@ def ctc_loss_from_logp(logp: torch.Tensor, labels: torch.Tensor,
     return per_seq.mean()
 
 
-def ctc_loss(model: "Basecaller", signal, labels, label_lens, reference: bool = False):
+def ctc_loss(model: "Basecaller", signal, labels, label_lens, reference: bool = False,
+             group=None):
     """JAX's `ctc_loss(params, signal, labels, label_lens, cfg, train=True)`
     (:188-199): the train-mode forward of `model` on signal (B, T) or (B,
-    T, C), then `ctc_loss_from_logp`.  A scalar tensor under autograd."""
+    T, C), then `ctc_loss_from_logp`.  A scalar tensor under autograd.
+    `group`, an `ops.BatchGroup`: the BatchNorm statistics over its ranks'
+    rows (the loss stays the mean over this rank's rows)."""
     dev = next(model.parameters()).device
     x = torch.as_tensor(signal, dtype=_F32).to(dev)
-    logp = run_network(model.prepare(train=True), x, train=True, reference=reference)
+    logp = run_network(model.prepare(train=True), x, train=True, reference=reference,
+                       group=group)
     return ctc_loss_from_logp(logp, labels, label_lens)
 
 

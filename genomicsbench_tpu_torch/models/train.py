@@ -1,9 +1,15 @@
-"""The basecaller's CTC train step and the checkpoints, one card.
+"""The basecaller's CTC train step and the checkpoints, on one card or
+data-parallel over a mesh.
 
-The port of genomicsbench_tpu/models/train.py without the mesh:
-`make_train_step` (:33-56) and `save_checkpoint` / `load_checkpoint`
-(:86-111).  `param_spec`, `place_params` and the mesh arguments belong to
-the parallel slice, which is not ported yet.
+The port of genomicsbench_tpu/models/train.py: `make_train_step` (:33-56),
+`param_spec` (:21-30), `place_params` (:59-74) and `save_checkpoint` /
+`load_checkpoint` (:86-111).  The mesh's "data" axis is ported: each rank
+trains on its block of the batch, the BatchNorm statistics are over the
+whole batch (`ops.BatchGroup`), and the gradients are averaged over the
+ranks in one flat all_reduce before AdamW, as GSPMD's psum does for JAX.
+The "model" axis (conv channels split across ranks) is not: `param_spec`
+says what it would split, and `place_params` raises NotImplementedError
+for a mesh with model > 1 (ROADMAP queue 1: model and sequence sharding).
 
 The step is JAX's `value_and_grad(ctc_loss)` and `optax.adamw(1e-3)`:
 the train-mode forward (models/basecaller.py `run_network(train=True)`,
@@ -28,11 +34,14 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from genomicsbench_tpu_torch import resolve_device
 from genomicsbench_tpu_torch.models import StepTimer
 from genomicsbench_tpu_torch.models import basecaller as bc
+from genomicsbench_tpu_torch.ops.basecaller import BatchGroup
+from genomicsbench_tpu_torch.parallel.mesh import row_bounds
 
 ADAMW = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)   # optax.adamw's defaults
 
@@ -44,10 +53,48 @@ def optimized_tensors(model: nn.Module) -> list:
     return list(model.state_dict(keep_vars=True).values())
 
 
+def param_spec(state: dict, model_size: int = 1) -> dict:
+    """JAX's sharding rule (:21-30) on the port's state-dict names and
+    layouts: {name: spec}, a spec a tuple of one axis name or None per
+    dimension, () for a replicated tensor.  Conv weights (depth (k, C),
+    point and res_conv (C, F), full (k, C, F), decoder (C, L); JAX's
+    (k, Cin, Cout) leaves) split their output channel, the last dimension,
+    over "model" where it divides by model_size; the BatchNorm vectors
+    replicate."""
+    def spec(t):
+        if t.dim() >= 2 and t.shape[-1] % model_size == 0:
+            return (None,) * (t.dim() - 1) + ("model",)
+        return ()
+    return {name: spec(t) for name, t in state.items()}
+
+
+def place_params(model: nn.Module, optimizer, mesh):
+    """Every rank's model and optimizer state made equal to data rank 0's,
+    by broadcasts over the mesh's "data" axis.  Returns (model, optimizer).
+    A mesh with model > 1 raises NotImplementedError: splitting the conv
+    channels over "model" is ROADMAP queue 1's next slice."""
+    if mesh.model > 1:
+        raise NotImplementedError("the 'model' axis (conv channels split over ranks, "
+                                  "param_spec) is not ported: ROADMAP queue 1, model and "
+                                  "sequence sharding")
+    src = dist.get_global_rank(mesh.data_group, 0)
+    tensors = [t.data for t in model.state_dict(keep_vars=True).values()]
+    for st in optimizer.state.values():
+        tensors += [v for v in st.values() if torch.is_tensor(v)]
+    for t in tensors:
+        moved = t.to(mesh.device)
+        dist.broadcast(moved, src=src, group=mesh.data_group)
+        if moved is not t:
+            t.copy_(moved)
+    return model, optimizer
+
+
 def make_train_step(cfg: bc.BasecallerConfig = bc.BasecallerConfig(), device="cuda",
-                    learning_rate: float = 1e-3):
+                    learning_rate: float = 1e-3, mesh=None):
     """(init, train_step) for the basecaller on one device ("cuda" unless
-    the caller asks for "cpu"; raises without a card).
+    the caller asks for "cpu"; raises without a card), or data-parallel
+    over `mesh`'s "data" axis on the mesh's device (`device` is then not
+    read).
 
     `init(params=None, opt_state=None)` -> (model, optimizer): a Basecaller
     on the device from a state dict (`init_params(cfg)` when None), its
@@ -57,8 +104,18 @@ def make_train_step(cfg: bc.BasecallerConfig = bc.BasecallerConfig(), device="cu
     -> (model, optimizer, loss): one step in place, the loss a detached
     scalar tensor; signal (B, T) f32, labels (B, S) with 0 padding,
     label_lens (B,).  With `stats`, a dict, each stage is waited for and its
-    seconds added under forward, loss, backward and optimizer."""
-    dev = resolve_device(device)
+    seconds added under forward, loss, backward and optimizer.
+
+    With `mesh`: every rank calls train_step with the same global batch, B
+    a multiple of the "data" axis (ValueError); each rank trains on its
+    block of rows, the BatchNorm statistics over every rank's rows; the
+    gradients and the loss are averaged over the ranks in one flat
+    all_reduce before AdamW, so every rank takes the same step and returns
+    the global batch's mean loss.  `init` broadcasts data rank 0's state
+    (`place_params`).  With `stats` the collectives' seconds are added too,
+    under "bn forward all_reduce", "bn backward all_reduce" (inside the
+    forward's and the backward's) and "gradient all_reduce"."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
 
     def init(params=None, opt_state=None):
         state = bc.init_params(cfg) if params is None else params
@@ -69,29 +126,55 @@ def make_train_step(cfg: bc.BasecallerConfig = bc.BasecallerConfig(), device="cu
         opt = torch.optim.AdamW(optimized_tensors(model), lr=learning_rate, **ADAMW)
         if opt_state is not None:
             opt.load_state_dict(opt_state)
+        if mesh is not None:
+            place_params(model, opt, mesh)
         return model, opt
 
     def train_step(model, opt, signal, labels, label_lens, stats=None):
         timer = StepTimer(stats, dev)
         opt.zero_grad(set_to_none=True)
+        group = None
+        if mesh is not None:
+            lo, hi = row_bounds(mesh, len(signal))
+            signal, labels, label_lens = signal[lo:hi], labels[lo:hi], label_lens[lo:hi]
+            group = BatchGroup(mesh.data_group, stats)
         x = torch.as_tensor(signal, dtype=torch.float32).to(dev)
         labels = torch.as_tensor(labels).to(dev)
         label_lens = torch.as_tensor(label_lens).to(dev)
         with bc.f32_reduction(dev):
-            logp = bc.run_network(model.prepare(train=True), x, train=True)
+            logp = bc.run_network(model.prepare(train=True), x, train=True, group=group)
             timer.lap("forward")
             loss = bc.ctc_loss_from_logp(logp, labels, label_lens)
             timer.lap("loss")
             loss.backward()
         timer.lap("backward")
+        loss = loss.detach()
+        if mesh is not None:
+            loss = _average_grads(model, loss, mesh)
+            timer.lap("gradient all_reduce")
         for t in optimized_tensors(model):
             if t.grad is None:          # the BatchNorm statistics: decay alone
                 t.grad = torch.zeros_like(t)
         opt.step()
         timer.lap("optimizer")
-        return model, opt, loss.detach()
+        return model, opt, loss
 
     return init, train_step
+
+
+def _average_grads(model: nn.Module, loss: torch.Tensor, mesh) -> torch.Tensor:
+    """Every trained tensor's gradient, and the loss, averaged over the
+    mesh's "data" axis in one all_reduce of one flat f32 buffer; returns the
+    averaged loss."""
+    grads = [t.grad for t in optimized_tensors(model) if t.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1).float()])
+    dist.all_reduce(flat, group=mesh.data_group)
+    flat /= mesh.data
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+    return flat[off].to(loss.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -101,11 +184,18 @@ def _state(obj) -> dict:
     return obj.state_dict() if hasattr(obj, "state_dict") else obj
 
 
-def save_checkpoint(path, params, opt_state=None, step: int = 0) -> None:
+def save_checkpoint(path, params, opt_state=None, step: int = 0, mesh=None) -> None:
     """Write (params[, opt_state], step) to the file `path` with torch.save:
     params a module or a state dict (copied to the CPU), opt_state an
     optimizer or its state dict.  Written to a temporary file and moved
-    into place, so a reader never sees half a checkpoint."""
+    into place, so a reader never sees half a checkpoint.  With `mesh`
+    (every rank calls it), data rank 0 writes and every rank of the "data"
+    axis waits at a barrier until the file is in place."""
+    if mesh is not None:
+        if mesh.data_rank == 0:
+            save_checkpoint(path, params, opt_state, step)
+        dist.barrier(group=mesh.data_group)
+        return
     payload = {"params": {k: v.detach().cpu() for k, v in _state(params).items()},
                "step": int(step)}
     if opt_state is not None:

@@ -65,7 +65,8 @@ losses on the SELU'd logits of `ClairNet.logits`, task weights 1, plus
 outside the optimizer and the L2 sum: JAX has one bias per LSTM, and a
 trained second one would move the effective bias twice as fast.
 
-Not ported: `predict_sharded` (the mesh path).
+`predict_sharded` (:256) shards the samples over a mesh's "data" axis and
+gathers the four heads on every rank.
 """
 
 from __future__ import annotations
@@ -80,6 +81,7 @@ from torch import nn
 
 from genomicsbench_tpu_torch import resolve_device
 from genomicsbench_tpu_torch.models import StepTimer
+from genomicsbench_tpu_torch.parallel.mesh import gather_rows, shard_batch
 
 # Label counts: clair/task/gt21.py (21), genotype.py (3),
 # variant_length.py (2 * 16 + 1 = 33 each).
@@ -489,6 +491,19 @@ def predict_batches(params, batches, cfg: ClairConfig | None = None, device="cud
         off += s
     lap("fetch_split")
     return outs
+
+
+def predict_sharded(params, x, cfg: ClairConfig, mesh) -> dict:
+    """Data-parallel inference over the mesh's "data" axis (JAX's
+    `predict_sharded`, :256): x (B, seq_len, rows, channels) with B a
+    multiple of the axis (ValueError, as NamedSharding), each rank's block
+    through `forward_slabs` on the mesh's device, the packed heads gathered
+    in rank order.  Returns {head name: (B, classes) f32 softmax} on the
+    mesh's device, on every rank."""
+    model = build_model(params, cfg, mesh.device)
+    xd = shard_batch(mesh, x if torch.is_tensor(x) else np.asarray(x))
+    packed = gather_rows(mesh, forward_slabs(model, xd))
+    return dict(zip(HEAD_NAMES, torch.split(packed, list(model.cfg.head_sizes), dim=-1)))
 
 
 # ---------------------------------------------------------------- training

@@ -41,8 +41,9 @@ read's own n_events + n_kmers bands (no batch-wide padding), its traces at
 25 bytes per band, and its pairs written at the end of a slot of
 n_events + n_kmers pairs.  `align_batch` uploads once, launches each kernel
 once and fetches once; the QC gates (abea.py:600-606) run on the host,
-vectorised.  The JAX package's `mesh` argument (reads sharded over a
-device mesh) has no counterpart yet.
+vectorised.  With `mesh` (the JAX package's argument) the reads shard
+over the mesh's "data" axis and each rank's pairs are gathered in rank
+order.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ import numpy as np
 import torch
 
 from genomicsbench_tpu_torch import resolve_device
+from genomicsbench_tpu_torch.parallel.mesh import gather_rows, row_bounds
 
 BW = 100          # ALN_BANDWIDTH (f5c.h:28)
 KMER = 6
@@ -720,14 +722,30 @@ def _collect(t: ReadTables, flat: np.ndarray) -> AbeaResult:
 
 
 def align_batch(sequences, event_means, model_mean, model_stdv, scalings,
-                device="cuda") -> AbeaResult:
+                device="cuda", mesh=None) -> AbeaResult:
     """sequences: list of 0..3-coded arrays; event_means: list of f32
     arrays; scalings: (B, 2) [scale, shift]; the pore model's 4,096 level
     means and stdvs.  Returns per-read aligned (kmer, event) pairs after QC,
     align.c semantics, as the JAX package's align_batch.
 
     One upload, one launch of each kernel, one fetch; the plain versions
-    with device="cpu"."""
+    with device="cpu".  With `mesh` (parallel.mesh.Mesh; `device` is then
+    the mesh's) the reads shard over its "data" axis, a multiple of which B
+    must be (ValueError), the pore model on every rank; each rank aligns its
+    block and the pair counts, QC flags and pairs are gathered in rank
+    order, so every rank returns the one-card result."""
+    if mesh is not None:
+        lo, hi = row_bounds(mesh, len(sequences))
+        part = align_batch(sequences[lo:hi], event_means[lo:hi], model_mean, model_stdv,
+                           np.asarray(scalings, np.float32).reshape(-1, 2)[lo:hi],
+                           device=mesh.device)
+        counts = gather_rows(mesh, torch.tensor([len(q) for q in part.pairs],
+                                                dtype=torch.int64)).cpu().numpy()
+        failed = gather_rows(mesh, torch.tensor(part.failed, dtype=torch.bool)).cpu().numpy()
+        flat = np.concatenate(part.pairs) if part.pairs else np.zeros((0, 2), np.int32)
+        flat = gather_rows(mesh, torch.from_numpy(np.ascontiguousarray(flat, np.int32)))
+        pairs = np.split(flat.cpu().numpy(), np.cumsum(counts)[:-1]) if len(counts) else []
+        return AbeaResult(pairs=pairs, failed=failed.tolist())
     dev = resolve_device(device)
     if len(sequences) == 0:
         return AbeaResult(pairs=[], failed=[])

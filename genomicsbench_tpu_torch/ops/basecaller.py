@@ -46,14 +46,23 @@ passes that are kernels too:
   population mean and variance of the f32 view, JAX's `_bn(train=True)`),
   its backward gb_bc_bn_act_bwd (`bn_act_bwd`): the statistics' share
   included, column sums by per-block partials and a fixed-order sum, then
-  dx (and the residual's dres) as bf16.
+  dx (and the residual's dres) as bf16.  With a `BatchGroup` (the
+  data-parallel step) both take the statistics over every rank's rows, as
+  GSPMD gives them to JAX: the forward combines the ranks' means and
+  variances in two all-reduces, the backward runs gb_bc_bn_act_bwd_sums,
+  all-reduces the sums and runs gb_bc_bn_act_bwd_apply with the global
+  row count.  The
+  scale and bias gradients stay the rank's own sums: the step's gradient
+  average adds them over the ranks.
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
+import torch.distributed as dist
 
 from genomicsbench_tpu_torch._kernels import check_device as _check_device
 from genomicsbench_tpu_torch._kernels import check_tensor as _check
@@ -435,14 +444,56 @@ def depthwise_conv_train(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     return _DepthwiseConvFn.apply(x, w, stride, reference)
 
 
+class BatchGroup:
+    """The ranks a train-mode BatchNorm takes its statistics over: every
+    rank of the torch.distributed process group `group`, each holding as
+    many rows (models/train.py's data-parallel step checks the split).
+    `seconds`, a dict or None: where a dict, each all-reduce is waited for
+    on both sides and its seconds added under its name ("bn forward
+    all_reduce", "bn backward all_reduce")."""
+
+    def __init__(self, group, seconds: dict | None = None):
+        self.group, self.seconds = group, seconds
+        self.ranks = dist.get_world_size(group)
+
+    def all_reduce(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """t summed over the ranks, in place."""
+        timed = self.seconds is not None
+        if timed:
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            t0 = time.perf_counter()
+        dist.all_reduce(t, group=self.group)
+        if timed:
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+        return t
+
+
 def bn_train_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                  eps: float = BN_EPS) -> torch.Tensor:
+                  eps: float = BN_EPS, group: BatchGroup | None = None) -> torch.Tensor:
     """The batch statistics of x (..., C) bf16 over every row, from its f32
     view, the variance a population one (JAX's `jnp.mean` and `jnp.var` over
     (B, T) in `_bn(train=True)`, :144-151), as (4, C) f32 rows mean, factor,
     bias, inv with inv = 1 / sqrt(var + eps) and factor = inv * scale; the
-    first three are `bn_act`'s rows."""
-    var, mean = torch.var_mean(x.reshape(-1, x.shape[-1]).float(), dim=0, correction=0)
+    first three are `bn_act`'s rows.  With `group`, over every rank's rows:
+    each rank's mean and variance (torch.var_mean, as one card takes them)
+    combined with equal weights w = 1 / ranks, mean = sum w mean_r and var =
+    sum w (var_r + (mean_r - mean)^2), each sum one all_reduce (Chan et
+    al.'s pairwise combination).  At one rank w is 1 and the rows are the
+    one-card rows bit for bit; JAX's two passes over the global batch
+    (sums, then centred squares) round otherwise, and the full-depth
+    network at random weights amplifies a last-bit change of the
+    statistics into gradients far past the train step's checks."""
+    xf = x.reshape(-1, x.shape[-1]).float()
+    var, mean = torch.var_mean(xf, dim=0, correction=0)
+    if group is not None:
+        w = 1.0 / group.ranks
+        local = mean
+        mean = group.all_reduce(local * w, "bn forward all_reduce")
+        d = local - mean
+        var = group.all_reduce((var + d * d) * w, "bn forward all_reduce")
     inv = 1.0 / torch.sqrt(var + eps)
     return torch.stack([mean, inv * scale.float(), bias.float(), inv]).contiguous()
 
@@ -465,14 +516,17 @@ def _means(sums: torch.Tensor, n: int) -> torch.Tensor:
     return sums / torch.full_like(sums, float(n))
 
 
-def bn_act_bwd_reference(x, dout, p, res=None, res_p=None, swish: bool = True):
+def bn_act_bwd_reference(x, dout, p, res=None, res_p=None, swish: bool = True,
+                         group: BatchGroup | None = None):
     """The plain version of gb_bc_bn_act_bwd, one torch op per rounding:
     (dx, dres or None, sums), sums (2 or 3, C) f32 = sum g, sum g * xhat and
     with res sum g * rhat, where g = dout * swish'(y) (dout without Swish), y
     the forward's pre-Swish value recomputed, xhat = (x - mean) * inv; dx =
     factor * ((g - mean g) - xhat * mean(g * xhat)) as bf16, dres likewise
     with the residual's rows.  p and res_p the (4, C) rows of
-    `bn_train_rows`."""
+    `bn_train_rows`.  With `group` the means are of the sums all-reduced
+    over its ranks, by the global row count; the sums returned stay this
+    rank's."""
     C = x.shape[-1]
     xf = x.reshape(-1, C).float()
     y = (xf - p[0]) * p[1] + p[2]
@@ -489,7 +543,11 @@ def bn_act_bwd_reference(x, dout, p, res=None, res_p=None, swish: bool = True):
         rh = (rf - res_p[0]) * res_p[3]
         parts.append((g * rh).sum(0))
     sums = torch.stack(parts)
-    mean = _means(sums, xf.shape[0])
+    if group is None:
+        mean = _means(sums, xf.shape[0])
+    else:
+        mean = _means(group.all_reduce(sums.clone(), "bn backward all_reduce"),
+                      xf.shape[0] * group.ranks)
     gc = g - mean[0]
     dx = (p[1] * (gc - xh * mean[1])).to(_BF16).reshape(x.shape)
     dres = None
@@ -500,32 +558,45 @@ def bn_act_bwd_reference(x, dout, p, res=None, res_p=None, swish: bool = True):
 
 def bn_act_bwd(x: torch.Tensor, dout: torch.Tensor, p: torch.Tensor,
                res: torch.Tensor | None = None, res_p: torch.Tensor | None = None,
-               swish: bool = True):
+               swish: bool = True, group: BatchGroup | None = None):
     """The train-mode epilogue's backward, the statistics' share included:
     (dx, dres or None, sums) as `bn_act_bwd_reference` gives them.  CUDA
     tensors: one gb_bc_bn_act_bwd call (column sums by per-block partials
-    and a fixed-order final sum, no float atomics, then the apply pass);
-    CPU tensors the plain version."""
+    and a fixed-order final sum, no float atomics, then the apply pass), or
+    with `group` gb_bc_bn_act_bwd_sums, the sums all-reduced over the group
+    and gb_bc_bn_act_bwd_apply with the global row count; CPU tensors the
+    plain version.  The sums returned are this rank's own."""
     _check_bn_bwd(x, dout, p, res, res_p)
     if x.device.type == "cpu":
-        return bn_act_bwd_reference(x, dout, p, res, res_p, swish)
+        return bn_act_bwd_reference(x, dout, p, res, res_p, swish, group)
     _check_aligned(x, dout, res)
     C = x.shape[-1]
     N = x.numel() // C if C else 0
-    if N >= BN_BWD_MAX_ROWS:
-        raise ValueError(f"the backward epilogue takes fewer than {BN_BWD_MAX_ROWS} rows, got {N}")
+    total = N if group is None else N * group.ranks
+    if total >= BN_BWD_MAX_ROWS:
+        raise ValueError(f"the backward epilogue takes fewer than {BN_BWD_MAX_ROWS} rows, got "
+                         f"{total}")
     nsum = 2 if res is None else 3
     sums = torch.zeros(nsum, C, dtype=_F32, device=x.device)
     dx = torch.empty_like(x)
     dres = None if res is None else torch.empty_like(res)
     if N and C:
         part = torch.empty(-(-N // BN_BWD_ROWS) * nsum * C, dtype=_F32, device=x.device)
-        _launch(x.device, "gb_bc_bn_act_bwd", x.data_ptr(), dout.data_ptr(),
-                None if res is None else res.data_ptr(), p.data_ptr(),
-                None if res_p is None else res_p.data_ptr(), N, C, int(bool(swish)),
-                part.data_ptr(), part.numel(), sums.data_ptr(), dx.data_ptr(),
-                None if dres is None else dres.data_ptr())
+        ins = (x.data_ptr(), dout.data_ptr(), None if res is None else res.data_ptr(),
+               p.data_ptr(), None if res_p is None else res_p.data_ptr(), N, C,
+               int(bool(swish)))
+        outs = (dx.data_ptr(), None if dres is None else dres.data_ptr())
+        if group is None:
+            _launch(x.device, "gb_bc_bn_act_bwd", *ins, part.data_ptr(), part.numel(),
+                    sums.data_ptr(), *outs)
+        else:
+            _launch(x.device, "gb_bc_bn_act_bwd_sums", *ins, part.data_ptr(), part.numel(),
+                    sums.data_ptr())
+            summed = group.all_reduce(sums.clone(), "bn backward all_reduce")
+            _launch(x.device, "gb_bc_bn_act_bwd_apply", *ins, summed.data_ptr(), total, *outs)
         bn_act_bwd.launches += 1
+    elif group is not None:         # the other ranks' all-reduce waits for this one's
+        group.all_reduce(sums.clone(), "bn backward all_reduce")
     return dx, dres, sums
 
 
@@ -536,33 +607,38 @@ class _BnActTrainFn(torch.autograd.Function):
     """`bn_act` on batch statistics, with `bn_act_bwd` as its backward."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, res, res_scale, res_bias, swish, reference):
-        p = bn_train_rows(x, scale, bias)
-        rp = None if res is None else bn_train_rows(res, res_scale, res_bias)
+    def forward(ctx, x, scale, bias, res, res_scale, res_bias, swish, reference, group):
+        p = bn_train_rows(x, scale, bias, group=group)
+        rp = None if res is None else bn_train_rows(res, res_scale, res_bias, group=group)
         out = (bn_act_reference if reference else bn_act)(
             x, p[:3], res, None if rp is None else rp[:3], swish)
         ctx.save_for_backward(x, p, res, rp)
-        ctx.swish, ctx.reference = swish, reference
+        ctx.swish, ctx.reference, ctx.group = swish, reference, group
         return out
 
     @staticmethod
     def backward(ctx, dout):
         x, p, res, rp = ctx.saved_tensors
         bwd = bn_act_bwd_reference if ctx.reference else bn_act_bwd
-        dx, dres, sums = bwd(x, dout.contiguous(), p, res, rp, ctx.swish)
+        # the scale and bias gradients are this rank's own sums: the step's
+        # gradient average adds them over the ranks, so the group's sums
+        # would count them once per rank
+        dx, dres, sums = bwd(x, dout.contiguous(), p, res, rp, ctx.swish, ctx.group)
         if res is None:
-            return dx, sums[1], sums[0], None, None, None, None, None
-        return dx, sums[1], sums[0], dres, sums[2], sums[0].clone(), None, None
+            return dx, sums[1], sums[0], None, None, None, None, None, None
+        return dx, sums[1], sums[0], dres, sums[2], sums[0].clone(), None, None, None
 
 
 def bn_act_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                  res: torch.Tensor | None = None, res_scale: torch.Tensor | None = None,
                  res_bias: torch.Tensor | None = None, swish: bool = True,
-                 reference: bool = False) -> torch.Tensor:
+                 reference: bool = False, group: BatchGroup | None = None) -> torch.Tensor:
     """JAX's `_bn(x, p, train=True)` (:144-151), optionally plus the residual
     branch's own train-mode BatchNorm, optionally `_swish`, as bf16, under
     autograd: x (and res) (..., C) bf16, scale and bias (C,) f32.  No running
     statistics are kept (JAX reads none back).  CUDA tensors run
     gb_bc_bn_act forward and gb_bc_bn_act_bwd backward; CPU tensors, or
-    `reference`, the plain versions."""
-    return _BnActTrainFn.apply(x, scale, bias, res, res_scale, res_bias, swish, reference)
+    `reference`, the plain versions.  With `group` (a `BatchGroup`) the
+    statistics are over every rank's rows."""
+    return _BnActTrainFn.apply(x, scale, bias, res, res_scale, res_bias, swish, reference,
+                               group)

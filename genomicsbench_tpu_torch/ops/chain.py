@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from genomicsbench_tpu_torch import resolve_device
+from genomicsbench_tpu_torch.parallel.mesh import gather_rows, row_bounds
 
 NEG = -(1 << 30)
 MM_SEED_SEG_SHIFT = 48
@@ -457,9 +458,26 @@ def _chain_collect(pending: ChainDispatch) -> ChainBatchResult:
 
 def chain_batch(calls, window: int | None = None, max_iter: int = 5000,
                 max_skip: int = 25, is_cdna: bool = False,
-                device="cuda") -> ChainBatchResult:
+                device="cuda", mesh=None) -> ChainBatchResult:
     """Run chain_dp over a list of AnchorCall records: one upload, one
     kernel launch and one fetch on the card; the plain version with
-    device="cpu"."""
+    device="cpu".
+
+    With `mesh` (parallel.mesh.Mesh; `device` is then the mesh's), the
+    reads shard over its "data" axis, a multiple of which their count must
+    be (ValueError): each rank chains its block of reads and the planes,
+    padded to the batch's widest read, are gathered in rank order, so every
+    rank returns the one-card result."""
+    if mesh is not None:
+        lo, hi = row_bounds(mesh, len(calls))
+        part = chain_batch(calls[lo:hi], window, max_iter, max_skip, is_cdna, mesh.device)
+        ns = gather_rows(mesh, torch.from_numpy(part.n)).cpu().numpy()
+        N = int(ns.max()) if len(ns) else 0
+        planes = np.stack([np.pad(a, ((0, 0), (0, N - a.shape[1])), constant_values=fill)
+                           for a, fill in ((part.scores, 0), (part.parents, -1),
+                                           (part.peak_scores, 0))], axis=1)
+        got = gather_rows(mesh, torch.from_numpy(planes)).cpu().numpy()
+        return ChainBatchResult(scores=got[:, 0], parents=got[:, 1], peak_scores=got[:, 2],
+                                n=ns)
     return _chain_collect(_chain_dispatch(calls, window, max_iter, max_skip,
                                           is_cdna, device))

@@ -41,8 +41,10 @@ block), the work the kernels' bound is counted from.
 
 The TPU schedules of the same walks (`_pass1_smem1`, `_pass1_jump`,
 `_pass1_jump_queued`, `_pass3_jump`, their work queues, flush windows and
-environment knobs, the spans post-pass) and the `mesh` argument with
-`ShardedOccTable` have no counterpart here.
+environment knobs, the spans post-pass) and `ShardedOccTable` (the
+occ table split over a "model" axis) have no counterpart here.  The
+`mesh` argument shards the read batches over the mesh's "data" axis, the
+index whole on every rank (see `FmiPipeline`).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import numpy as np
 import torch
 
 from genomicsbench_tpu_torch import resolve_device
+from genomicsbench_tpu_torch.parallel.mesh import gather_rows, row_bounds
 
 BLOCK = 64            # BWT rows per line of the table
 CP_MAX = 24           # interval-list slots of a walk (JAX's CP cap)
@@ -882,11 +885,21 @@ class FmiPipeline:
     page-locked buffer, so pass 3 runs on the card while the host assembles
     pass 1 and runs pass 2 (its (qrow, pivot, min_intv) triples uploaded,
     one launch, one fetch).  Work items that overflow a walk's caps go
-    through the e-table, one extension launch per pass that overflows."""
+    through the e-table, one extension launch per pass that overflows.
+
+    With `mesh` (parallel.mesh.Mesh; `device` is then the mesh's) the index
+    goes whole to every rank and `run`, `pass1`, `pass2` and `pass3` shard
+    the batch over the mesh's "data" axis, a multiple of which B must be
+    (ValueError): each rank runs its block of reads, its read ids are
+    offset by the block's start, and each pass's SMEMs are gathered in rank
+    order, which is the one-card order (every pass is read-major).
+    `last_counts` then holds this rank's counts."""
 
     def __init__(self, index: FmdIndex, min_seed_len: int = 19, split_width: int = 10,
-                 max_mem_intv: int = 20, split_factor: float = 1.5, device="cuda"):
-        self.device = resolve_device(device)
+                 max_mem_intv: int = 20, split_factor: float = 1.5, device="cuda",
+                 mesh=None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.index = index
         self.tables = index.device(self.device)
         self.min_seed_len = min_seed_len
@@ -1025,9 +1038,28 @@ class FmiPipeline:
         split.mark("pass1 assembly")
         return out
 
+    # ---------------------------------------------------------------- mesh
+    def _rows(self, query):
+        return row_bounds(self.mesh, len(query))
+
+    def _gathered(self, r: SmemResult, lo: int) -> SmemResult:
+        """Every rank's SMEMs of one pass in rank order, read ids global."""
+        table = np.stack([r.rid + lo, r.m, r.n, r.k, r.s], 1).astype(np.int64)
+        return _mk_smem(*gather_rows(self.mesh, torch.from_numpy(table)).cpu().numpy().T)
+
+    def _sharded(self, fn, query, qlen):
+        lo, hi = self._rows(query)
+        return self._gathered(fn(np.asarray(query)[lo:hi], np.asarray(qlen)[lo:hi]), lo)
+
+    # ---------------------------------------------------------------- the passes
     def pass1(self, query, qlen):
         """All SMEMs of length >= min_seed_len (min_intv 1), read-major and
         start-ascending."""
+        if self.mesh is not None:
+            return self._sharded(self._pass1_local, query, qlen)
+        return self._pass1_local(query, qlen)
+
+    def _pass1_local(self, query, qlen):
         q_d, ql_d = self._put_query(query, qlen)
         split = _Split(None, self.device)
         fetch = self._launch_pass1(q_d, ql_d, split)
@@ -1075,6 +1107,16 @@ class FmiPipeline:
     def pass2(self, query, qlen, parents: SmemResult):
         """The reseed: from the midpoint of each long rare pass-1 SMEM, the
         SMEMs covering it with min_intv = s + 1."""
+        if self.mesh is not None:
+            lo, hi = self._rows(query)
+            keep = (parents.rid >= lo) & (parents.rid < hi)
+            mine = _mk_smem(parents.rid[keep] - lo, parents.m[keep], parents.n[keep],
+                            parents.k[keep], parents.s[keep])
+            return self._gathered(self._pass2_local(np.asarray(query)[lo:hi],
+                                                    np.asarray(qlen)[lo:hi], mine), lo)
+        return self._pass2_local(query, qlen, parents)
+
+    def _pass2_local(self, query, qlen, parents: SmemResult):
         q_d, ql_d = self._put_query(query, qlen)
         return self._pass2(q_d, ql_d, qlen, parents, _Split(None, self.device))
 
@@ -1096,6 +1138,11 @@ class FmiPipeline:
 
     def pass3(self, query, qlen):
         """bwt_seed_strategy1 emissions, read by read in hop order."""
+        if self.mesh is not None:
+            return self._sharded(self._pass3_local, query, qlen)
+        return self._pass3_local(query, qlen)
+
+    def _pass3_local(self, query, qlen):
         q_d, ql_d = self._put_query(query, qlen)
         split = _Split(None, self.device)
         fetch = self._launch_pass3(q_d, ql_d, split)
@@ -1104,7 +1151,16 @@ class FmiPipeline:
     def run(self, query, qlen, stats=None):
         """All three passes; returns (pass1, pass2, pass3, total_count).
         With stats={"synchronize": True}, every stage is waited for and its
-        seconds added to `stats` under its name (the split)."""
+        seconds added to `stats` under its name (the split; on a mesh, this
+        rank's)."""
+        if self.mesh is not None:
+            lo, hi = self._rows(query)
+            got = self._run_local(np.asarray(query)[lo:hi], np.asarray(qlen)[lo:hi], stats)
+            p1, p2, p3 = (self._gathered(r, lo) for r in got[:3])
+            return p1, p2, p3, p1.count + p2.count + p3.count
+        return self._run_local(query, qlen, stats)
+
+    def _run_local(self, query, qlen, stats):
         split = _Split(stats, self.device)
         qlen = np.asarray(qlen)
         q_d, ql_d = self._put_query(query, qlen)

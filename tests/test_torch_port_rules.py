@@ -49,6 +49,9 @@
   `_device_sort_pairs` mismatched lengths, keys past 32 bits and window ids
   outside [0, 2^31).  The pileup and dbg test files mask the JAX package's
   native loader on every test.
+* The parallel layer (parallel/, the mesh arguments, predict_sharded) and
+  the rank program of its tests (tests/torch_parallel_cases.py) import no
+  JAX; a cuda mesh raises without a card (tests/test_torch_parallel.py).
 """
 
 import ast
@@ -99,7 +102,8 @@ PORT_FILES = sorted((ROOT / "genomicsbench_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / "kmer_ab.py", ROOT / "tools" / "sites_seed3_ab.py",
     ROOT / "tests" / "torch_variant_cases.py", ROOT / "tools" / "grm_finish_ab.py",
     ROOT / "tests" / "torch_train_cases.py", ROOT / "tests" / "test_torch_train_cuda.py",
-    ROOT / "tools" / "train_kernels_ab.py",
+    ROOT / "tools" / "train_kernels_ab.py", ROOT / "tests" / "torch_parallel_cases.py",
+    ROOT / "tests" / "test_torch_parallel_cuda.py",
 ]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "genomicsbench_tpu")
 
@@ -1165,6 +1169,22 @@ def test_train_import_loads_no_jax():
             "import genomicsbench_tpu_torch.models.variant_caller\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'genomicsbench_tpu', 'optax', 'orbax')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_parallel_import_loads_no_jax():
+    code = ("import sys\n"
+            "import genomicsbench_tpu_torch.parallel.mesh\n"
+            "import genomicsbench_tpu_torch.parallel.multihost\n"
+            "import genomicsbench_tpu_torch.parallel.data_parallel\n"
+            "import genomicsbench_tpu_torch.parallel.sharded_count\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import torch_parallel_cases\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'genomicsbench_tpu')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
