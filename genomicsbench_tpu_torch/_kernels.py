@@ -71,7 +71,8 @@ SOURCES = {
                     "gb_bc_depthwise_wgrad": [_P, _P, _L, _I, _I, _I, _P, _L, _P, _P],
                     "gb_bc_bn_act_bwd": [_P] * 5 + [_L, _I, _I, _P, _L] + [_P] * 4,
                     "gb_bc_bn_act_bwd_sums": [_P] * 5 + [_L, _I, _I, _P, _L, _P, _P],
-                    "gb_bc_bn_act_bwd_apply": [_P] * 5 + [_L, _I, _I, _P, _L] + [_P] * 3}),
+                    "gb_bc_bn_act_bwd_apply": [_P] * 5 + [_L, _I, _I, _P, _L] + [_P] * 3,
+                    "gb_bc_rcp_check": [_P, _P]}),
     "grm": (CSRC / "grm.cu",
             {"gb_grm_standardize": [_P, _P, _L, _I, _P, _P, _P],
              "gb_grm_finish": [_P, _P, _I, _I, _P, _P]}),

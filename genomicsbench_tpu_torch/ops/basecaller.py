@@ -292,8 +292,14 @@ decoder_head.launches = 0
 # JAX differentiates its XLA convs itself (models/basecaller.py:135-186), so
 # these replace no TPU kernel; the port needs them because its forwards are
 # hand-written and autograd cannot see through a ctypes launch.
-BN_BWD_ROWS = 256               # gb_bc_bn_act_bwd: rows a partial sum covers
-BN_BWD_MAX_ROWS = 1 << 24       # N as f32 is exact, and the partials fit one grid
+BN_BWD_GROUPS = 264             # gb_bc_bn_act_bwd: blocks of the column sums, at most
+BN_BWD_MAX_ROWS = 1 << 24       # N as f32 is exact
+
+
+def bn_bwd_scratch_floats(N: int, C: int, nsum: int) -> int:
+    """The floats of gb_bc_bn_act_bwd_sums' partials: one (nsum, C) row a
+    block down the rows, at most min(N, BN_BWD_GROUPS) blocks."""
+    return min(N, BN_BWD_GROUPS) * nsum * C
 
 
 def _check_aligned(*tensors) -> None:
@@ -382,7 +388,8 @@ def depthwise_wgrad(x: torch.Tensor, gy: torch.Tensor, k: int, stride: int = 1) 
     its input x (B, T, C) bf16 and output gradient gy (B, T_out, C) bf16.
     CUDA tensors: one gb_bc_depthwise_wgrad call (per-block partial sums
     into a scratch buffer, then their sum in a fixed order: two runs give
-    the same bits), stride 1 and odd k only, else ValueError before any
+    the same bits, those of `wgrad_schedule` in tests/torch_train_cases.py),
+    stride 1 and odd k only, else ValueError before any
     launch; CPU tensors the plain version at any shape."""
     if x.device.type != "cpu":
         _check_train_depthwise(k, stride)
@@ -581,7 +588,7 @@ def bn_act_bwd(x: torch.Tensor, dout: torch.Tensor, p: torch.Tensor,
     dx = torch.empty_like(x)
     dres = None if res is None else torch.empty_like(res)
     if N and C:
-        part = torch.empty(-(-N // BN_BWD_ROWS) * nsum * C, dtype=_F32, device=x.device)
+        part = torch.empty(bn_bwd_scratch_floats(N, C, nsum), dtype=_F32, device=x.device)
         ins = (x.data_ptr(), dout.data_ptr(), None if res is None else res.data_ptr(),
                p.data_ptr(), None if res_p is None else res_p.data_ptr(), N, C,
                int(bool(swish)))

@@ -133,9 +133,9 @@ def test_predict_sharded(mesh):
 
 
 @pytest.mark.parametrize("res", [False, True])
-@pytest.mark.parametrize("C_,N", [(48, 1), (256, 257), (464, 128_000)])
+@pytest.mark.parametrize("C_,N", [(48, 1), (34, 600), (256, 257), (280, 797), (464, 128_000)])
 def test_split_bn_bwd_entries_equal_the_composed_entry(mesh, C_, N, res):
-    from genomicsbench_tpu_torch.ops.basecaller import BN_BWD_ROWS, BatchGroup
+    from genomicsbench_tpu_torch.ops.basecaller import BatchGroup, bn_bwd_scratch_floats
 
     g = torch.Generator(device=mesh.device).manual_seed(C_ + N + res)
     rnd = lambda sd, loc: (torch.randn(N, C_, device=mesh.device, generator=g) * sd
@@ -147,7 +147,7 @@ def test_split_bn_bwd_entries_equal_the_composed_entry(mesh, C_, N, res):
     rr, rp = (r, ops.bn_train_rows(r, bi + 1, sc - 1)) if res else (None, None)
     want = ops.bn_act_bwd(x, dout, p, rr, rp)
     nsum = 3 if res else 2
-    part = torch.empty(-(-N // BN_BWD_ROWS) * nsum * C_, device=mesh.device)
+    part = torch.empty(bn_bwd_scratch_floats(N, C_, nsum), device=mesh.device)
     sums = torch.zeros(nsum, C_, device=mesh.device)
     dx, dres = torch.empty_like(x), torch.empty_like(x) if res else None
     ins = (x.data_ptr(), dout.data_ptr(), rr.data_ptr() if res else None, p.data_ptr(),
@@ -163,7 +163,8 @@ def test_split_bn_bwd_entries_equal_the_composed_entry(mesh, C_, N, res):
             assert (a is None and b is None) or torch.equal(a, b)
     plain = ops.bn_act_bwd_reference(x, dout, p, rr, rp)
     exact, mags, term_err = bn_bwd_sums64(x, dout, p, rr, rp)
-    kernel_sum_close(sums, exact, bn_sums_depth(N), mags, f"sums C {C_} N {N}", term_err)
+    kernel_sum_close(sums, exact, bn_sums_depth(N, C_, res), mags, f"sums C {C_} N {N}",
+                     term_err)
     dx_s, dres_s, _ = bn_bwd_scales(x, dout, p, rr, rp)
     sums_close(dx, plain[0], N + 8, dx_s, f"dx C {C_} N {N}", 1e-3)
     if res:

@@ -41,7 +41,11 @@ with its reason:
 * The card's checks of the two reductions (`kernel_sum_close` at the
   depth of each kernel's own order): f32 sums taken in that order, in
   numpy, pass them at the main path's sizes, and the same sums with one
-  partial dropped or doubled fail them.
+  partial dropped or doubled fail them.  The numpy models of the two
+  kernels' schedules (`wgrad_partials`, `bn_sum_partials`), which the card
+  tests hold the kernels to bit for bit, add every term once: on small
+  integers, whose sums are exact in any order, they equal the plain sums
+  bit for bit.
 """
 
 import functools
@@ -66,10 +70,12 @@ from genomicsbench_tpu_torch.models import train as TR
 from genomicsbench_tpu_torch.ops import basecaller as ops
 
 from torch_basecaller_cases import depthwise_shapes
-from torch_train_cases import (BN_ROWS, WG_TILE, agreement, bn_bwd_scales, bn_bwd_sums64,
+from torch_train_cases import (BN_GROUPS, WGRAD_MODEL_SHAPES, agreement, bn_bwd_scales,
+                               bn_bwd_sums64, bn_sum_final, bn_sum_partials, bn_sum_width,
                                bn_sums_depth, clair_batch, ctc_batch, input_grad_abs_sum,
                                kernel_sum_close, sums_close, train_launch_shapes,
-                               wgrad_abs_sum, wgrad_depth, wgrad_sums64)
+                               wgrad_abs_sum, wgrad_depth, wgrad_final, wgrad_layout,
+                               wgrad_partials, wgrad_schedule, wgrad_sums64)
 
 torch.set_num_threads(1)
 
@@ -232,17 +238,6 @@ def test_epilogue_backward_one_row_and_empty():
     assert dx.shape == (0, 8) and dres is None and float(sums.abs().sum()) == 0.0
 
 
-def _ordered_f32_sum(t: np.ndarray, rows: int) -> np.ndarray:
-    """(G, C) float32 partials of (N, C) float32 terms, `rows` rows each,
-    every sum taken in row order (numpy's float32 add.accumulate is
-    sequential), as the card's kernels take them."""
-    G = -(-t.shape[0] // rows)
-    tp = np.zeros((G * rows,) + t.shape[1:], np.float32)
-    tp[:t.shape[0]] = t
-    return np.add.accumulate(tp.reshape((G, rows) + t.shape[1:]), axis=1,
-                             dtype=np.float32)[:, -1]
-
-
 def _faults(parts: np.ndarray, i: int):
     """The partials as they are, with partial i dropped and with it doubled."""
     dropped, doubled = parts.copy(), parts.copy()
@@ -251,13 +246,10 @@ def _faults(parts: np.ndarray, i: int):
     return parts, dropped, doubled
 
 
-@pytest.mark.parametrize("res", [False, True])
-def test_bn_sums_check_holds_the_kernel_order_and_fails_a_fault(res):
-    """gb_bc_bn_act_bwd's column sums at the main path's N 128,000: kBnRows
-    rows in order into each partial, the partials in order, from the plain
-    formula's f32 terms; a dropped or doubled partial of 256 rows fails."""
-    N, C = 128_000, 8
-    g = torch.Generator().manual_seed(11 + res)
+def _bn_case(N, C, res, seed):
+    """A backward epilogue's inputs and the plain formula's f32 terms of its
+    column sums: (x, dout, p, res or None, res_p or None, [terms (N, C)])."""
+    g = torch.Generator().manual_seed(seed)
     x = (torch.randn(N, C, generator=g) * 2 + 0.5).to(_BF16)
     r = (torch.randn(N, C, generator=g) * 3 - 1).to(_BF16)
     dout = torch.randn(N, C, generator=g).to(_BF16)
@@ -273,42 +265,107 @@ def test_bn_sums_check_holds_the_kernel_order_and_fails_a_fault(res):
     terms = [gt, gt * ((xf - p[0]) * p[3])]
     if res:
         terms.append(gt * ((r.float() - rp[0]) * rp[3]))
-    parts = [_ordered_f32_sum(t.numpy(), BN_ROWS) for t in terms]
+    return x, dout, p, rr, rp, [t.numpy() for t in terms]
+
+
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("res", [False, True])
+def test_bn_sums_check_holds_the_kernel_order_and_fails_a_fault(res, wide):
+    """gb_bc_bn_act_bwd's column sums at the main path's N 128,000 in the
+    kernel's own order (`bn_sum_partials`: 264 blocks down the rows, which
+    take the rows in turn, each lane adding its rows in order and the block
+    its lanes in lane order; `bn_sum_final`: a warp a column, lane l the
+    blocks l, l + 32, ..., then a butterfly), at either width a thread
+    takes, from the plain formula's f32 terms; a dropped or doubled block's
+    partial fails."""
+    N, C = 128_000, 8
+    x, dout, p, rr, rp, terms = _bn_case(N, C, res, 11 + res)
+    parts = [bn_sum_partials(t, bn_sum_width(C, res, wide)) for t in terms]
+    assert parts[0].shape == (BN_GROUPS, C)
     exact, mags, term_err = bn_bwd_sums64(x, dout, p, rr, rp)
     for i, case in enumerate(zip(*(_faults(pt, 123) for pt in parts))):
-        got = torch.from_numpy(np.stack([_ordered_f32_sum(pt, len(pt))[0] for pt in case]))
+        got = torch.from_numpy(np.stack([bn_sum_final(pt) for pt in case]))
         if i == 0:
-            share = kernel_sum_close(got, exact, bn_sums_depth(N), mags, "in order", term_err)
+            share = kernel_sum_close(got, exact, bn_sums_depth(N, C, res), mags, "in order",
+                                     term_err)
             assert 0 < share < 1
         else:
             with pytest.raises(AssertionError, match="order bound"):
-                kernel_sum_close(got, exact, bn_sums_depth(N), mags, "a fault", term_err)
+                kernel_sum_close(got, exact, bn_sums_depth(N, C, res), mags, "a fault",
+                                 term_err)
+
+
+@pytest.mark.parametrize("N,C,V", [(N, C, V) for N, C in ((1, 8), (255, 48), (257, 2),
+                                                            (600, 130), (70_000, 440))
+                                     for V in (8, 4, 2) if C % V == 0])
+def test_bn_sum_schedule_adds_every_row_once(N, C, V):
+    """`bn_sum_partials` and `bn_sum_final` at each width a thread takes, on
+    terms whose every partial sum is exact in f32 (small integers): the
+    plain column sums bit for bit, so every row lands once in its column's
+    sum whatever the order; and on random f32 terms within the order's
+    bound of the float64 sums."""
+    rng = np.random.default_rng(N + C)
+    t = rng.integers(-20, 21, (N, C)).astype(np.float32)
+    got = bn_sum_final(bn_sum_partials(t, V))
+    np.testing.assert_array_equal(got, t.astype(np.float64).sum(0))
+    t = rng.normal(size=(N, C)).astype(np.float32)
+    got = torch.from_numpy(bn_sum_final(bn_sum_partials(t, V))[None])
+    t64 = torch.from_numpy(t).double()
+    depth = max(bn_sums_depth(N, C, res) for res in (False, True))
+    kernel_sum_close(got, t64.sum(0)[None], depth, t64.abs().sum(0)[None], f"N {N} C {C}")
 
 
 def test_wgrad_check_holds_the_kernel_order_and_fails_a_fault():
-    """gb_bc_depthwise_wgrad's sums at the main path's B 64 x T 2,000: at C
-    2 and k 9 the layout gives a thread one item of kWgTile frames (the
-    products exact, added in order), and the partials are added in item
-    order, then rounded to bf16; a dropped or doubled item fails."""
+    """gb_bc_depthwise_wgrad's sums at the main path's B 64 x T 2,000 in the
+    kernel's own order (`wgrad_partials`, `wgrad_final`): at C 2 and k 9 the
+    layout gives each of 264 blocks 3-4 items of 144 frames, 16 splits of
+    9 frames a thread; the blocks' partials added in block order, then
+    rounded to bf16; a dropped or doubled block's partial fails."""
     B, T_len, C, k = 64, 2_000, 2, 9
     g = torch.Generator().manual_seed(12)
     x = torch.randn(B, T_len, C, generator=g).to(_BF16)
     gy = torch.randn(B, T_len, C, generator=g).to(_BF16)
+    lay = wgrad_layout(B, T_len, C, k)
+    assert (lay["J"], lay["splits"], lay["fs"], lay["ft"], lay["items"], lay["groups"]) == (
+        9, 16, 9, 144, 896, 264)
     depth = wgrad_depth(B, T_len, C, k)
-    assert float(depth.max()) == WG_TILE + B * -(-T_len // WG_TILE)
-    xp = torch.nn.functional.pad(x.float(), (0, 0, k // 2, k // 2)).numpy()
-    gf = gy.float().numpy()
-    parts = np.stack([np.concatenate([_ordered_f32_sum(xp[b, j:j + T_len] * gf[b], WG_TILE)
-                                      for b in range(B)]) for j in range(k)], axis=1)
+    assert float(depth.max()) == 4 * 9 + 15 + 264
+    parts = wgrad_partials(x, gy, k)
     exact, scale = wgrad_sums64(x, gy, k)
     for i, case in enumerate(_faults(parts, 100)):
-        got = torch.from_numpy(_ordered_f32_sum(case, len(case))[0]).to(_BF16).float()
+        got = wgrad_final(case)
         if i == 0:
             share = kernel_sum_close(got, exact, depth, scale, "in order", bf16=True)
             assert 0 < share < 1
         else:
             with pytest.raises(AssertionError, match="order bound"):
                 kernel_sum_close(got, exact, depth, scale, "a fault", bf16=True)
+
+
+@pytest.mark.parametrize("k,C,B,T_len", WGRAD_MODEL_SHAPES)
+def test_wgrad_schedule_adds_every_product_once(k, C, B, T_len):
+    """`wgrad_partials`, the model of gb_bc_depthwise_wgrad's partition, on
+    inputs whose every partial sum is exact in f32 (small integers): the
+    blocks' partials add up to the float64 sums exactly, and the schedule's
+    output is the plain version's bit for bit, so each product lands once
+    in its (j, c) whatever the order; on random inputs the schedule is
+    within the bound of its own order of the float64 sums and within the
+    plain version's order bound of it."""
+    rng = np.random.default_rng(k + C + T_len)
+    x, gy = (torch.from_numpy(rng.integers(-3, 4, (B, T_len, C)).astype(np.float32)).to(_BF16)
+             for _ in range(2))
+    exact, _ = wgrad_sums64(x, gy, k)
+    np.testing.assert_array_equal(wgrad_partials(x, gy, k).astype(np.float64).sum(0),
+                                  exact.numpy())
+    assert torch.equal(wgrad_schedule(x, gy, k), ops.depthwise_wgrad_reference(x, gy, k))
+    x = torch.from_numpy(rng.normal(size=(B, T_len, C)).astype(np.float32)).to(_BF16)
+    gy = torch.from_numpy(rng.normal(size=(B, T_len, C)).astype(np.float32)).to(_BF16)
+    got = wgrad_schedule(x, gy, k)
+    exact, scale = wgrad_sums64(x, gy, k)
+    kernel_sum_close(got, exact, wgrad_depth(B, T_len, C, k), scale, f"k {k} C {C}",
+                     bf16=True)
+    sums_close(got, ops.depthwise_wgrad_reference(x, gy, k), B * T_len, scale,
+               f"k {k} C {C}", 1e-3)
 
 
 @pytest.mark.parametrize("fault", ["dtype", "rows", "dout_shape", "res_rows", "odd", "device"])

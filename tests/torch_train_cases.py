@@ -114,36 +114,167 @@ def wgrad_abs_sum(x: torch.Tensor, gy: torch.Tensor, k: int, stride: int = 1) ->
 
 
 # gb_bc_depthwise_wgrad's partition (csrc/basecaller.cu `wg_layout`: kSlab,
-# kWgTaps, kWgLanes, kWgTile, kWgBlocks) and gb_bc_bn_act_bwd's (kBnRows)
-WG_SLAB, WG_TAPS, WG_LANES, WG_TILE, WG_BLOCKS = 32, 8, 16, 256, 528
-BN_ROWS = 256
+# kWgTaps, kWgRows, kWgFrames, kWgBlocks) and gb_bc_bn_act_bwd's sums pass
+# (`bn_sum_layout`: kBnBlock, kBnGroups)
+WG_SLAB, WG_TAPS, WG_ROWS, WG_FRAMES, WG_BLOCKS = 32, 16, 16, 256, 264
+BN_BLOCK, BN_GROUPS = 256, 264
+
+# (k, C, B, T): k below and above the 16-tap window (one tap group, or
+# 2-16), past one block's 256 taps (chunks); C not a multiple of the slab's
+# 32 or of 8; T below one item, at and past an item's edge
+WGRAD_MODEL_SHAPES = [(1, 2, 3, 2), (5, 40, 1, 1), (9, 48, 2, 300), (9, 440, 1, 150),
+                      (15, 64, 1, 241), (17, 66, 2, 257), (31, 34, 1, 300), (67, 34, 2, 290),
+                      (123, 48, 1, 700), (129, 66, 1, 260), (301, 34, 1, 520)]
+
+
+def wgrad_layout(B: int, T: int, C: int, k: int) -> dict:
+    """`wg_layout`: J taps a thread (k below WG_TAPS, else WG_TAPS), kc taps
+    a block, n_grp tap groups and `splits` frame splits of its WG_ROWS lane
+    rows, fs frames a split takes of an item (a multiple of J; an odd one
+    below WG_TAPS), ft = fs * splits frames an item, the slabs, tap chunks
+    and tiles, the (batch row, tile) items and the blocks over them
+    (`groups`)."""
+    J = k if k < WG_TAPS else WG_TAPS
+    kc = min(k, J * WG_ROWS)
+    n_grp = -(-kc // J)
+    splits = WG_ROWS // n_grp
+    if J == WG_TAPS:
+        fs = WG_TAPS * -(-WG_FRAMES // (splits * WG_TAPS))
+    else:
+        m = WG_FRAMES // (WG_ROWS * J)
+        m = m if m % 2 else m - 1
+        fs = J * max(m, 1)
+    ft = fs * splits
+    n_slabs, n_chunks, n_tiles = -(-C // WG_SLAB), -(-k // kc), -(-T // ft)
+    items = B * n_tiles
+    groups = min(max(WG_BLOCKS // (n_slabs * n_chunks), 1), items)
+    return dict(J=J, kc=kc, n_grp=n_grp, splits=splits, fs=fs, ft=ft, n_slabs=n_slabs,
+                n_chunks=n_chunks, n_tiles=n_tiles, items=items, groups=groups)
 
 
 def wgrad_depth(B: int, T: int, C: int, k: int) -> torch.Tensor:
     """(k, 1) float64: the roundings in gb_bc_depthwise_wgrad's sum of each
-    tap's products at stride 1, in its own order.  A thread adds the
-    frames of its items in order (one FMA a frame, the product exact): at
-    most ceil(items / (groups * splits)) items of min(T, kWgTile) frames;
-    then the groups * splits partials are added in order, of which at most
-    `items` are not zero (adding a zero is exact)."""
-    chunk = WG_TAPS * WG_LANES
-    n_slabs, n_chunks, n_tiles = -(-C // WG_SLAB), -(-k // chunk), -(-T // WG_TILE)
-    items = B * n_tiles
-    groups = min(max(WG_BLOCKS // (n_slabs * n_chunks), 1), items)
-    depth = torch.empty(k, 1, dtype=torch.float64)
-    for c in range(n_chunks):
-        kc = min(chunk, k - c * chunk)
-        splits = WG_LANES // -(-kc // WG_TAPS)
-        depth[c * chunk:c * chunk + kc] = (-(-items // (groups * splits)) * min(T, WG_TILE)
-                                           + min(items, groups * splits))
-    return depth
+    tap's products at stride 1, in its own order.  A thread adds the fs
+    frames of each of its block's items in order (one FMA a frame, the
+    product exact; frames past T add an exact zero), at most ceil(items /
+    groups) items; its block adds its `splits` threads' sums in split order
+    (splits - 1 roundings); then the `groups` blocks' partials are added in
+    order from zero."""
+    lay = wgrad_layout(B, T, C, k)
+    depth = (-(-lay["items"] // lay["groups"]) * lay["fs"] + lay["splits"] - 1
+             + lay["groups"])
+    return torch.full((k, 1), float(depth), dtype=torch.float64)
 
 
-def bn_sums_depth(N: int) -> int:
-    """The roundings in gb_bc_bn_act_bwd's column sums, in its own order:
-    kBnRows rows added in order into a partial, then the ceil(N / kBnRows)
-    partials added in order."""
-    return min(N, BN_ROWS) + -(-N // BN_ROWS)
+def wgrad_partials(x: torch.Tensor, gy: torch.Tensor, k: int) -> np.ndarray:
+    """The numpy model of gb_bc_depthwise_wgrad's partition at stride 1:
+    (groups, k, C) float32, each block's partial sums as the kernel writes
+    them.  Items are (batch row, tile of ft frames), item b * n_tiles +
+    tile; block g takes items g, g + groups, ...; its split s adds, from
+    +0, the products x[b, t + j - k // 2] * gy[b, t] (exact in f32, each add
+    rounded once as the FMA rounds it) of frames s * fs .. + fs - 1 of each
+    item in order, zero past the sequence; the block adds its splits' sums
+    in split order."""
+    B, T, C = x.shape
+    lay = wgrad_layout(B, T, C, k)
+    G, S, fs, ft, n_tiles = lay["groups"], lay["splits"], lay["fs"], lay["ft"], lay["n_tiles"]
+    n_it = -(-lay["items"] // G)
+    p = k // 2
+    Tp = n_tiles * ft
+    xp = np.zeros((B, Tp + k - 1, C), np.float32)
+    xp[:, p:p + T] = x.float().cpu().numpy()
+    gp = np.zeros((B, Tp, C), np.float32)
+    gp[:, :T] = gy.float().cpu().numpy()
+    out = np.empty((G, k, C), np.float32)
+    for j in range(k):
+        prod = np.zeros((n_it * G, ft, C), np.float32)
+        prod[:lay["items"]] = (xp[:, j:j + Tp] * gp).reshape(B * n_tiles, ft, C)
+        # (item n * G + g) -> (g, split, frames of the split's items in order)
+        seq = prod.reshape(n_it, G, S, fs, C).transpose(1, 2, 0, 3, 4).reshape(G, S, n_it * fs, C)
+        seq = np.concatenate([np.zeros((G, S, 1, C), np.float32), seq], axis=2)
+        acc = np.add.accumulate(seq, axis=2, dtype=np.float32)[:, :, -1]
+        out[:, j] = np.add.accumulate(acc, axis=1, dtype=np.float32)[:, -1]
+    return out
+
+
+def wgrad_final(parts: np.ndarray) -> torch.Tensor:
+    """gb_bc_depthwise_wgrad's second kernel on (groups, k, C) float32
+    partials: each (j, c) added in block order from +0, rounded to bf16,
+    as float32 (k, C)."""
+    seq = np.concatenate([np.zeros((1,) + parts.shape[1:], np.float32), parts], axis=0)
+    tot = np.add.accumulate(seq, axis=0, dtype=np.float32)[-1]
+    return torch.from_numpy(tot).to(torch.bfloat16).float()
+
+
+def wgrad_schedule(x: torch.Tensor, gy: torch.Tensor, k: int) -> torch.Tensor:
+    """gb_bc_depthwise_wgrad's output as its schedule computes it, bit for
+    bit: (k, C) float32 of bf16 values."""
+    return wgrad_final(wgrad_partials(x, gy, k))
+
+
+def bn_sum_width(C: int, res: bool, wide: bool) -> int:
+    """The channels a thread of gb_bc_bn_act_bwd takes (`bn_bwd_dispatch`):
+    where `wide` (C a multiple of 8 and every pointer 16-byte aligned) 8,
+    or 4 with the residual branch; else 2."""
+    return (4 if res else 8) if wide else 2
+
+
+def bn_sum_layout(N: int, C: int, V: int) -> dict:
+    """`bn_sum_layout` at V channels a thread: a block's gpb channel groups
+    by `lanes` row lanes, and n_groups blocks down the rows, block g's lane l
+    taking rows g * lanes + l, + n_groups * lanes, ..."""
+    gpb = min(C // V, BN_BLOCK)
+    lanes = BN_BLOCK // gpb
+    return dict(gpb=gpb, lanes=lanes, n_groups=min(-(-N // lanes), BN_GROUPS))
+
+
+def bn_sums_depth(N: int, C: int, res: bool) -> int:
+    """The roundings in gb_bc_bn_act_bwd's column sums, in its own order, at
+    either width a thread may take (the larger): a thread adds its rows in
+    order from zero, ceil(N / (n_groups * lanes)); the block adds its lanes'
+    partials in lane order (lanes - 1); the final kernel's lane adds
+    ceil(n_groups / 32) blocks' partials from zero, and the butterfly 5."""
+    depths = []
+    for wide in {C % 8 == 0, False}:
+        lay = bn_sum_layout(N, C, bn_sum_width(C, res, wide))
+        depths.append(-(-N // (lay["n_groups"] * lay["lanes"])) + lay["lanes"] - 1
+                      + -(-lay["n_groups"] // 32) + 5)
+    return max(depths)
+
+
+def bn_sum_partials(terms: np.ndarray, V: int) -> np.ndarray:
+    """The numpy model of gb_bc_bn_act_bwd's sums pass on (N, C) float32
+    terms at V channels a thread (`bn_sum_width`): (n_groups, C) float32,
+    each block's partial as it writes it.  Block g's lane l adds rows g *
+    lanes + l, + n_groups * lanes, ... in order from +0; the block adds its
+    lanes' sums in lane order."""
+    N, C = terms.shape
+    lay = bn_sum_layout(N, C, V)
+    G, lanes = lay["n_groups"], lay["lanes"]
+    n_i = -(-N // (G * lanes))
+    rows = np.zeros((n_i * G * lanes, C), np.float32)
+    rows[:N] = terms
+    # row (i * G + g) * lanes + l is lane l of block g's i-th
+    lane_rows = rows.reshape(n_i, G, lanes, C).transpose(1, 2, 0, 3)
+    lane_rows = np.concatenate([np.zeros((G, lanes, 1, C), np.float32), lane_rows], axis=2)
+    acc = np.add.accumulate(lane_rows, axis=2, dtype=np.float32)[:, :, -1]
+    return np.add.accumulate(acc, axis=1, dtype=np.float32)[:, -1]
+
+
+def bn_sum_final(parts: np.ndarray) -> np.ndarray:
+    """gb_bc_bn_act_bwd's final kernel on (n_groups, C) float32 partials:
+    lane l of a column's warp adds partials l, l + 32, ... in order from +0,
+    then the lanes meet in the butterfly xor 16, 8, 4, 2, 1.  (C,) float32."""
+    G, C = parts.shape
+    n_w = -(-G // 32)
+    p = np.zeros((n_w * 32, C), np.float32)
+    p[:G] = parts
+    seq = np.concatenate([np.zeros((1, 32, C), np.float32), p.reshape(n_w, 32, C)], axis=0)
+    lanes = np.add.accumulate(seq, axis=0, dtype=np.float32)[-1]
+    idx = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        lanes = (lanes + lanes[idx ^ o]).astype(np.float32)
+    return lanes[0]
 
 
 def input_grad_abs_sum(gy: torch.Tensor, w: torch.Tensor, T: int, stride: int = 1):
